@@ -19,6 +19,9 @@ def main():
         import jax
 
         jax.config.update("jax_platforms", "cpu")
+    from voidin_tpu.framework.device import enable_compile_cache
+
+    enable_compile_cache()
     import jax
     import jax.numpy as jnp
 

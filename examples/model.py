@@ -14,7 +14,7 @@ scene and torus knots for ferris):
   postprocess, HUD burn-in, recorded clip + screenshot.
 
 Run: python examples/model.py --cpu --frames 8 --out model.png
-     python examples/model.py --record clip_dir --frames 120   (TPU)
+     python examples/model.py --record clip_dir --frames 120   (GPU)
 """
 
 import argparse
@@ -135,6 +135,9 @@ def main():
         import jax
 
         jax.config.update("jax_platforms", "cpu")
+    from voidin_tpu.framework.device import enable_compile_cache
+
+    enable_compile_cache()
     import jax
 
     cfg = RasterConfig(

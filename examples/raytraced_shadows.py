@@ -43,6 +43,9 @@ def main():
         import jax
 
         jax.config.update("jax_platforms", "cpu")
+    from voidin_tpu.framework.device import enable_compile_cache
+
+    enable_compile_cache()
 
     w = build_world()
     cfg = RasterConfig(

@@ -65,6 +65,10 @@ def main():
 
         jax.config.update("jax_platforms", "cpu")
 
+    from voidin_tpu.framework.device import enable_compile_cache
+
+    enable_compile_cache()
+
     world, moving = build_world()
     import jax
 

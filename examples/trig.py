@@ -21,6 +21,9 @@ def main():
         import jax
 
         jax.config.update("jax_platforms", "cpu")
+    from voidin_tpu.framework.device import enable_compile_cache
+
+    enable_compile_cache()
 
     w = vt.World()
     tri = Mesh(

@@ -3,7 +3,7 @@ running a reference binary in its winit window (lib.rs event loop), shown
 as 24-bit ANSI half-block cells in any terminal.
 
 Run:  python examples/viewer.py --cpu            (laptop-friendly size)
-      python examples/viewer.py --width 640 --height 360   (TPU)
+      python examples/viewer.py --width 640 --height 360   (GPU)
 Keys: WASD/QE move, arrows look, +/- speed, 3 screenshot, Esc quit.
 """
 
@@ -61,6 +61,9 @@ def main():
         import jax
 
         jax.config.update("jax_platforms", "cpu")
+    from voidin_tpu.framework.device import enable_compile_cache
+
+    enable_compile_cache()
     import jax
 
     cfg = RasterConfig(

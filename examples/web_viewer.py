@@ -4,7 +4,7 @@ debug window). Open the printed URL; frames stream live, the page overlays
 fps/camera stats, and WASD/QE + drag (or arrows) fly the camera.
 
 Run:  python examples/web_viewer.py --cpu            (laptop-friendly)
-      python examples/web_viewer.py --width 640 --height 360   (TPU)
+      python examples/web_viewer.py --width 640 --height 360   (GPU)
 """
 
 import argparse
@@ -30,6 +30,9 @@ def main():
         import jax
 
         jax.config.update("jax_platforms", "cpu")
+    from voidin_tpu.framework.device import enable_compile_cache
+
+    enable_compile_cache()
     import jax
 
     cfg = RasterConfig(

@@ -1,4 +1,4 @@
-"""Independent end-to-end image oracle (VERDICT r3 missing #2 / next #6).
+"""Independent end-to-end image oracle.
 
 A deliberately simple numpy renderer written directly from the reference
 WGSL semantics and the Vulkan/wgpu rasterization rules:
@@ -26,7 +26,7 @@ its own goldens.
 This is a test fixture: clarity over speed (pure numpy, a Python loop
 per triangle).  Known, bounded divergences from the production frame are
 listed in tests/test_oracle.py; the comparison budget is image-level
-(VERDICT: "diffed <1e-2"), never bit-level — two independently written
+(mean diff < 1e-2), never bit-level — two independently written
 rasterizers legitimately disagree on edge/tie pixels.
 """
 

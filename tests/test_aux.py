@@ -4,6 +4,7 @@ import time
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from voidin_tpu.framework.input import (
     CameraController,
@@ -111,13 +112,7 @@ def test_ltc_polygon_annulus():
     np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-5)
 
 
-def test_bench_tuned_options(tmp_path):
-    """bench.tuned_options picks the fastest TPU-measured A/B variant.
-    Missing/CPU/stale/malformed captures fall back to 'all_exact' — the
-    composed variant with no new Pallas kernel and no image deviations
-    (every component XLA-only and bit-exact with the base path) — never
-    to an unguarded Pallas-kernel variant (ADVICE r3)."""
-    import json
+def _bench():
     import os
     import sys
 
@@ -125,54 +120,68 @@ def test_bench_tuned_options(tmp_path):
         os.path.abspath(__file__))))
     import bench
 
-    # the unswept default must not enable the Pallas LUT kernel (needs the
-    # hardware bit-exactness guard first) nor any image deviation
-    # (bf16 LUT weights / half-res area lights / f16 instance records)
-    _cfg, _bf16, _ascale, _lut = bench.AB_VARIANTS["all_exact"]
-    assert _lut == "off" and not _bf16 and _ascale == 1
-    assert not _cfg.get("inst_rec_f16", False)
+    return bench
 
+
+def _sweep(path, device_kind, variants, ms):
+    import json
+
+    with open(path, "w") as f:
+        json.dump({"device_kind": device_kind, "variants": variants,
+                   "ms_per_variant": ms}, f)
+
+
+def test_bench_tuned_options(tmp_path):
+    """bench.tuned_options picks the fastest A/B variant of a sweep
+    measured on THIS device kind. Missing/stale/malformed captures fall
+    back to 'base' — the RasterConfig defaults."""
+    import json
+
+    bench = _bench()
+    kind = "NVIDIA H100 80GB HBM3"
     p = str(tmp_path / "AB_OPTIONS.json")
-    # no file -> unswept default
-    assert bench.tuned_options(p)[0] == "all_exact"
-    # cpu capture -> unswept default (only TPU timings steer the metric)
-    with open(p, "w") as f:
-        json.dump({"backend": "cpu",
-                   "ms_per_variant": {"base": 10, "all": 5}}, f)
-    assert bench.tuned_options(p)[0] == "all_exact"
-    # tpu capture without a matching variant-definition stamp -> default
+    # no file -> base
+    assert bench.tuned_options(p, device_kind=kind)[0] == "base"
+    assert bench.AB_VARIANTS["base"] == (dict(), False, 1)
+    # capture without a matching variant-definition stamp -> base
     # (a capture from an older build measured different semantics)
-    with open(p, "w") as f:
-        json.dump({"backend": "tpu",
-                   "ms_per_variant": {"base": 10, "all": 5.5}}, f)
-    assert bench.tuned_options(p)[0] == "all_exact"
+    _sweep(p, kind, None, {"base": 10, "all": 5.5})
+    assert bench.tuned_options(p, device_kind=kind)[0] == "base"
     # a variant whose DEFINITION changed since the capture is invalidated
     # individually: its (stale) 5.5 ms may not steer, but the still-valid
-    # 'base' entry does — the sweep survives an edit to one variant
-    with open(p, "w") as f:
-        stale = json.loads(json.dumps(bench.ab_variants_stamp()))
-        stale["all"][1] = not stale["all"][1]
-        json.dump({"backend": "tpu", "variants": stale,
-                   "ms_per_variant": {"base": 10, "all": 5.5}}, f)
-    assert bench.tuned_options(p)[0] == "base"
+    # 'fused_rec' entry does — the sweep survives an edit to one variant
+    stale = json.loads(json.dumps(bench.ab_variants_stamp()))
+    stale["all"][1] = not stale["all"][1]
+    _sweep(p, kind, stale, {"base": 10, "fused_rec": 9, "all": 5.5})
+    assert bench.tuned_options(p, device_kind=kind)[0] == "fused_rec"
     # a capture taken before a NEW variant was added stays valid for the
     # variants it measured (additive edits don't discard the sweep)
-    with open(p, "w") as f:
-        subset = json.loads(json.dumps(bench.ab_variants_stamp()))
-        subset.pop("fused_rec")
-        json.dump({"backend": "tpu", "variants": subset,
-                   "ms_per_variant": {"base": 10, "all": 5.5}}, f)
-    assert bench.tuned_options(p)[0] == "all"
-    # tpu capture with the current stamp -> fastest variant wins (even
-    # when slower than the default's expectation: measurements rule)
-    with open(p, "w") as f:
-        json.dump({"backend": "tpu", "variants": bench.ab_variants_stamp(),
-                   "ms_per_variant": {"base": 10, "fused_rec": 8,
-                                      "all": 5.5}}, f)
-    name, opts, swept = bench.tuned_options(p, with_meta=True)
+    subset = json.loads(json.dumps(bench.ab_variants_stamp()))
+    subset.pop("fused_rec")
+    _sweep(p, kind, subset, {"base": 10, "all": 5.5})
+    assert bench.tuned_options(p, device_kind=kind)[0] == "all"
+    # current stamp -> fastest variant wins
+    _sweep(p, kind, bench.ab_variants_stamp(),
+           {"base": 10, "fused_rec": 8, "all": 5.5})
+    name, opts, swept = bench.tuned_options(p, with_meta=True,
+                                            device_kind=kind)
     assert name == "all" and opts == bench.AB_VARIANTS["all"] and swept
-    assert bench.tuned_options(p, with_meta=True)[2] is True
-    # malformed -> unswept default
+    # malformed -> base
     with open(p, "w") as f:
         f.write("not json")
-    assert bench.tuned_options(p)[0] == "all_exact"
+    assert bench.tuned_options(p, device_kind=kind)[0] == "base"
+
+
+@pytest.mark.parametrize("stamped", [None, "cpu", "NVIDIA H200",
+                                     "NVIDIA A100-SXM4-80GB"])
+def test_bench_tuned_options_refuses_other_device_kind(tmp_path, stamped):
+    """A sweep stamped with another device_kind (or none) never steers the
+    run, however fast its variants measured there."""
+    bench = _bench()
+    p = str(tmp_path / "AB_OPTIONS.json")
+    _sweep(p, stamped, bench.ab_variants_stamp(),
+           {"base": 10, "all": 1.0})
+    name, opts, swept = bench.tuned_options(
+        p, with_meta=True, device_kind="NVIDIA H100 80GB HBM3"
+    )
+    assert (name, opts, swept) == ("base", bench.AB_VARIANTS["base"], False)

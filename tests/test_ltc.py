@@ -461,8 +461,8 @@ def test_ab_all_variant_close_to_base():
     ).render(cam))
 
     for variant in ("all", "all_lut"):
-        ab_cfg, ab_bf16, ab_ascale, ab_lut = bench_mod.AB_VARIANTS[variant]
-        bench_mod.apply_ab_runtime_options(ab_bf16, ab_ascale, ab_lut, "cpu")
+        ab_cfg, ab_bf16, ab_ascale = bench_mod.AB_VARIANTS[variant]
+        bench_mod.apply_ab_runtime_options(ab_bf16, ab_ascale)
         try:
             img_all = np.asarray(Renderer(
                 w.device(), dataclasses.replace(CFG, **ab_cfg),
@@ -470,7 +470,6 @@ def test_ab_all_variant_close_to_base():
             ).render(cam))
         finally:
             shading.LTC_LUT_BF16 = False
-            shading.LTC_FETCH_PALLAS = "off"
         diff = np.abs(
             img_base.astype(np.float64) - img_all.astype(np.float64)
         )
@@ -489,8 +488,8 @@ def _repo_root():
 
 
 def test_ltc12_quad_gather_matches_mxu_fetch():
-    """LTC12_MXU=False (texel-quad gather LUT fetch) vs the MXU matmul
-    fetch: same bilinear math, different execution — results must agree to
+    """LTC12_MXU=False (texel-quad gather LUT fetch) vs the weight
+    contraction fetch: same bilinear math, different execution — results must agree to
     f32 rounding on the area-lit golden scene (untested-option guard)."""
     import jax
 
@@ -516,67 +515,3 @@ def test_ltc12_quad_gather_matches_mxu_fetch():
         shading.LTC12_MXU = True
     diff = np.abs(img_mxu.astype(np.float64) - img_gather.astype(np.float64))
     assert diff.max() < 1e-4, diff.max()
-
-
-def test_ltc_pallas_lut_fetch_image_bit_exact():
-    """LTC_FETCH_PALLAS (LUT fetches through the Pallas kernel,
-    ops/lut_fetch.py) must render a BIT-IDENTICAL area-lit frame: same
-    taps, same weights, same contraction order — only the weight-matrix
-    materialization moves from HBM to VMEM."""
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
-
-    import voidin_tpu as vt
-    from tests.test_golden import CFG, _deferred_scene
-    from voidin_tpu.framework.renderer import Renderer
-    from voidin_tpu.passes import shading
-
-    w = _deferred_scene()
-    cam = vt.Camera(position=[0, 2, 0], pitch=-18.0,
-                    aspect=CFG.width / CFG.height)
-    img_off = np.asarray(Renderer(
-        w.device(), CFG, enable_taa=False,
-    ).render(cam))
-    shading.LTC_FETCH_PALLAS = "interpret"
-    try:
-        img_k = np.asarray(Renderer(
-            w.device(), CFG, enable_taa=False,
-        ).render(cam))
-    finally:
-        shading.LTC_FETCH_PALLAS = "off"
-    np.testing.assert_array_equal(img_off, img_k)
-
-
-def test_lut_fetch_kernel_matches_xla_formulation():
-    """ops/lut_fetch.py (interpret) vs sample_lut_bilinear_mxu_multi:
-    bit-exact across channel counts incl. the lane-padding paths (C=1
-    pads to 2 tables, C=5 to 6) and corner uvs."""
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
-    import jax.numpy as jnp
-
-    from voidin_tpu.ops.lut_fetch import lut_fetch_pallas
-    from voidin_tpu.passes import shading
-
-    rng = np.random.default_rng(3)
-    for n_chan in (1, 5, 8):
-        tables = [
-            jnp.asarray(rng.standard_normal((64, 64)), jnp.float32)
-            for _ in range(n_chan)
-        ]
-        uv = jnp.asarray(
-            rng.uniform(0, 1, (17, 29, 2)).astype(np.float32)
-        ) * shading.LUT_SCALE + shading.LUT_BIAS
-        ref = shading.sample_lut_bilinear_mxu_multi(tables, uv)
-        got = lut_fetch_pallas(tables, uv, interpret=True)
-        for a, b in zip(ref, got):
-            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    # corner uvs exercise the clamped second tap (y1 == y0 weight merge)
-    uv_edge = jnp.asarray(
-        [[0.0, 0.0], [1.0, 1.0], [0.0, 1.0], [1.0, 0.0]], jnp.float32
-    ) * shading.LUT_SCALE + shading.LUT_BIAS
-    ref = shading.sample_lut_bilinear_mxu_multi(tables[:1], uv_edge)
-    got = lut_fetch_pallas(tables[:1], uv_edge, interpret=True)
-    np.testing.assert_array_equal(np.asarray(ref[0]), np.asarray(got[0]))

@@ -31,27 +31,109 @@ from voidin_tpu.passes.raster import RasterConfig
 from . import oracle_renderer as orc
 
 
-def _production(world, cam_uniform, width, height, caps, enable_cull):
-    import dataclasses
+def _production(world, cam_uniform, width, height, caps, enable_cull,
+                enable_rt_shadows=False):
+    """First frame (TAA off) through the production frame program; the
+    raster kernel runs compiled on an accelerator, interpreted on the CPU
+    (chip_smoke.py runs these scenes on the GPU)."""
     from functools import partial
 
     import jax
     import jax.numpy as jnp
 
     cfg = RasterConfig(
-        width=width, height=height, interpret=True, **caps
+        width=width, height=height,
+        interpret=jax.default_backend() == "cpu", **caps
     )
-    scene = world.device()
+    scene = world.device(with_tlas=enable_rt_shadows)
     g = Globals.make(width, height, frame=0, time=0.0, dt=0.0)
     state = FrameState.initial(width, height)
     img, _, _, aux = jax.jit(
         partial(
             render_frame, config=cfg, enable_cull=enable_cull,
-            enable_taa=False,
+            enable_taa=False, enable_rt_shadows=enable_rt_shadows,
         )
     )(scene, cam_uniform, g, state, jnp.zeros(0, jnp.int32))
     assert int(aux["overflow"]) == 0, "capacities must hold the scene"
     return np.asarray(img)
+
+
+def case_deferred():
+    """(production, oracle) images of the golden deferred scene."""
+    from .test_golden import CFG, H, W, _deferred_scene
+
+    w = _deferred_scene()
+    cam = vt.Camera(position=[0, 2, 0], pitch=-18.0, aspect=W / H)
+    cu = cam.uniform()
+    prod = _production(
+        w, cu, W, H,
+        dict(tri_capacity=CFG.tri_capacity,
+             pair_capacity=CFG.pair_capacity,
+             tile_tri_capacity=CFG.tile_tri_capacity),
+        enable_cull=False,
+    )
+    return prod, orc.render_oracle(w, cu, W, H)
+
+
+def case_config1():
+    """(production, oracle) images of BASELINE config 1 at 256x144."""
+    from voidin_tpu.framework.presets import config1_single_mesh
+
+    W, H = 256, 144
+    p = config1_single_mesh(W / H)
+    cu = p.camera.uniform()
+    prod = _production(
+        p.world, cu, W, H,
+        dict(tri_capacity=1 << 17, pair_capacity=1 << 18,
+             tile_tri_capacity=192),
+        enable_cull=False,
+    )
+    return prod, orc.render_oracle(p.world, cu, W, H)
+
+
+def _raytraced_world():
+    from voidin_tpu.core import mathx
+
+    w = vt.World()
+    knot = w.meshes.add(vt.mesh.make_torus_knot(segments=48, sides=8))
+    sphere = w.meshes.add(vt.mesh.make_uv_sphere(1.0, 4))
+    mat = w.materials.add()
+    rng = np.random.default_rng(11)
+    for i in range(8):
+        a = 2 * np.pi * i / 8
+        r = 3 + (i % 3)
+        t = mathx.from_translation(
+            [r * np.cos(a), 0.5 + (i % 3) * 1.2, -8 + r * np.sin(a)]
+        ) @ mathx.from_scale(float(rng.uniform(0.6, 1.0)))
+        w.instances.add(np.asarray(t), knot if i % 2 else sphere, mat)
+    w.instances.add(
+        np.asarray(
+            mathx.from_translation([0, -1.0, -8]) @ mathx.from_scale(30.0)
+        ),
+        vt.mesh.HORIZONTAL_PLANE_MESH,
+        mat,
+    )
+    # a LOW light elongates the cast shadows toward the camera (a high
+    # light at this pose shadows only ~2% of pixels — too weak for the
+    # dead-traversal check of the test)
+    w.lights.add_point_light([8, 4, -2], 35.0, [0.7, 0.68, 0.6])
+    return w
+
+
+def case_raytraced():
+    """(production, oracle, world, camera uniform, W, H) of the config-5
+    class scene: TLAS-traced point-light shadows with the PRODUCTION
+    traversal settings (threaded 8x16 screen-block packets)."""
+    W, H = 192, 108
+    w = _raytraced_world()
+    cu = vt.Camera(position=[0, 4, 3], pitch=-22.0, aspect=W / H).uniform()
+    prod = _production(
+        w, cu, W, H,
+        dict(tri_capacity=1 << 15, pair_capacity=1 << 16,
+             tile_tri_capacity=128, rt_packet=128, rt_threaded=True),
+        enable_cull=False, enable_rt_shadows=True,
+    )
+    return prod, orc.render_oracle_raytraced(w, cu, W, H), w, cu, W, H
 
 
 def _diff_report(prod, oracle):
@@ -76,19 +158,7 @@ def _assert_anchored(prod, oracle, mean_budget=1e-2, name=""):
 def test_oracle_matches_production_deferred_scene():
     """The golden deferred scene (point + area light, 5 spheres + plane):
     the fastest full-pipeline anchor."""
-    from .test_golden import CFG, H, W, _deferred_scene
-
-    w = _deferred_scene()
-    cam = vt.Camera(position=[0, 2, 0], pitch=-18.0, aspect=W / H)
-    cu = cam.uniform()
-    prod = _production(
-        w, cu, W, H,
-        dict(tri_capacity=CFG.tri_capacity,
-             pair_capacity=CFG.pair_capacity,
-             tile_tri_capacity=CFG.tile_tri_capacity),
-        enable_cull=False,
-    )
-    oracle = orc.render_oracle(w, cu, W, H)
+    prod, oracle = case_deferred()
     _assert_anchored(prod, oracle, name="deferred")
 
 
@@ -96,18 +166,7 @@ def test_oracle_matches_production_config1():
     """BASELINE config 1 (single dense mesh, point light, no cull/TAA) at
     reduced resolution — shading.wgsl point-light semantics + raster at
     ~65k triangles."""
-    from voidin_tpu.framework.presets import config1_single_mesh
-
-    W, H = 256, 144
-    p = config1_single_mesh(W / H)
-    cu = p.camera.uniform()
-    prod = _production(
-        p.world, cu, W, H,
-        dict(tri_capacity=1 << 17, pair_capacity=1 << 18,
-             tile_tri_capacity=192),
-        enable_cull=False,
-    )
-    oracle = orc.render_oracle(p.world, cu, W, H)
+    prod, oracle = case_config1()
     _assert_anchored(prod, oracle, name="config1")
 
 
@@ -138,61 +197,7 @@ def test_oracle_matches_production_raytraced():
     BVH/packet/threaded traversal stack at image level (VERDICT r4 next
     #6). The production frame runs the PRODUCTION traversal settings
     (threaded 8x16 screen-block packets)."""
-    import dataclasses
-    from functools import partial
-
-    import jax
-    import jax.numpy as jnp
-
-    from voidin_tpu.core import mathx
-
-    W, H = 192, 108
-    w = vt.World()
-    knot = w.meshes.add(vt.mesh.make_torus_knot(segments=48, sides=8))
-    sphere = w.meshes.add(vt.mesh.make_uv_sphere(1.0, 4))
-    mat = w.materials.add()
-    rng = np.random.default_rng(11)
-    for i in range(8):
-        a = 2 * np.pi * i / 8
-        r = 3 + (i % 3)
-        t = mathx.from_translation(
-            [r * np.cos(a), 0.5 + (i % 3) * 1.2, -8 + r * np.sin(a)]
-        ) @ mathx.from_scale(float(rng.uniform(0.6, 1.0)))
-        w.instances.add(np.asarray(t), knot if i % 2 else sphere, mat)
-    w.instances.add(
-        np.asarray(
-            mathx.from_translation([0, -1.0, -8]) @ mathx.from_scale(30.0)
-        ),
-        vt.mesh.HORIZONTAL_PLANE_MESH,
-        mat,
-    )
-    # a LOW light elongates the cast shadows toward the camera (a high
-    # light at this pose shadows only ~2% of pixels — too weak for the
-    # dead-traversal check below)
-    w.lights.add_point_light([8, 4, -2], 35.0, [0.7, 0.68, 0.6])
-    cam = vt.Camera(position=[0, 4, 3], pitch=-22.0, aspect=W / H)
-    cu = cam.uniform()
-
-    from voidin_tpu.passes.raster import RasterConfig
-
-    cfg = RasterConfig(
-        width=W, height=H, interpret=True, tri_capacity=1 << 15,
-        pair_capacity=1 << 16, tile_tri_capacity=128,
-        rt_packet=128, rt_threaded=True,
-    )
-    scene = w.device(with_tlas=True)
-    g = Globals.make(W, H, frame=0, time=0.0, dt=0.0)
-    state = FrameState.initial(W, H)
-    img, _, _, aux = jax.jit(
-        partial(
-            render_frame, config=cfg, enable_cull=False, enable_taa=False,
-            enable_rt_shadows=True,
-        )
-    )(scene, cu, g, state, jnp.zeros(0, jnp.int32))
-    assert int(aux["overflow"]) == 0
-    prod = np.asarray(img)
-
-    oracle = orc.render_oracle_raytraced(w, cu, W, H)
+    prod, oracle, w, cu, W, H = case_raytraced()
     _assert_anchored(prod, oracle, name="raytraced")
 
     # the shadows must MATTER in this frame: the oracle re-run with an

@@ -4,6 +4,7 @@ import pytest
 
 import voidin_tpu as vt
 from voidin_tpu.core import mathx
+from voidin_tpu.ops import fine_raster as fr
 from voidin_tpu.passes import cull, raster
 
 CFG = raster.RasterConfig(
@@ -136,21 +137,106 @@ def test_visibility_mask_conservative():
         assert mask[i], f"instance {i} rasterized but was culled"
 
 
-def test_fine_raster_pallas_matches_xla():
-    """The Pallas kernel and the XLA twin must agree exactly."""
-    import dataclasses
+def _rand_records(rng, n, ties=False):
+    """Random tile-local coefficient records on a dyadic grid: every
+    product and sum the raster forms is exact in f32. Depths never tie
+    across the kernel's chunks or the twin's groups (whose first-chunk tie
+    rules differ only there): each record's depth stays inside its own
+    1/64-wide band — or, with `ties`, each aligned group of TRI_GROUP
+    records shares three constant depths of its own, tying only within
+    the group."""
+    r = np.zeros((n, fr.RECORD_F), np.float32)
+    q = lambda lo, hi, size, s=8: rng.integers(lo * s, hi * s, size) / s  # noqa: E731,E501
+    for e in range(3):
+        r[:, 3 * e] = q(-2, 2, n)
+        r[:, 3 * e + 1] = q(-2, 2, n)
+        r[:, 3 * e + 2] = q(-4, 20, n)
+    if ties:
+        group = np.arange(n) // fr.TRI_GROUP
+        r[:, fr.F_D + 2] = (3 * group + rng.integers(1, 4, n)) / 64.0
+        r[:, fr.F_ZMAX] = 1e3
+    else:
+        band = (rng.permutation(n) + 1) / 64.0
+        # slopes < 2^-12: a record moves < 2^-7 over the tile
+        r[:, fr.F_D] = q(-1, 1, n, 2**12) / 2**12
+        r[:, fr.F_D + 1] = q(-1, 1, n, 2**12) / 2**12
+        r[:, fr.F_D + 2] = band
+        # zmax clamps about half of the records inside their band
+        r[:, fr.F_ZMAX] = band + rng.choice([-1.0, 1.0], n) / 2**8
+    r[:, fr.F_ID] = rng.permutation(n).astype(np.float32)
+    return r
 
-    w = _scene()
-    scene = w.device()
-    cam = _camera(CFG.width / CFG.height)
-    draws = cull.emit_draws(scene.meshes, scene.instances, cam)
-    setup = raster.triangle_setup(scene.meshes, scene.instances, draws, cam, CFG)
-    records, counts, _ = raster.bin_triangles(setup, CFG)
-    d_p, i_p = raster.fine_raster(records, counts, CFG, backend="pallas")
-    d_x, i_x = raster.fine_raster(records, counts, CFG, backend="xla")
-    # fine_raster returns untiled images
-    np.testing.assert_array_equal(np.asarray(d_p), np.asarray(d_x))
-    np.testing.assert_array_equal(np.asarray(i_p), np.asarray(i_x))
+
+def _pairs_and_blocks(per_tile, nt, lead):
+    """Tile-sorted pair stream (`lead` foreign rows first, so tile ranges
+    start unaligned) + the same records as (NT, K, F) blocks."""
+    junk = np.zeros((lead, fr.RECORD_F), np.float32)
+    junk[:, 2] = junk[:, 5] = junk[:, 8] = 1.0  # would cover every pixel
+    junk[:, fr.F_D + 2] = junk[:, fr.F_ZMAX] = 0.99
+    junk[:, fr.F_ID] = 1e6
+    counts = np.asarray([len(per_tile.get(t, ())) for t in range(nt)])
+    starts = lead + np.concatenate([[0], np.cumsum(counts)[:-1]])
+    stream = np.concatenate(
+        [junk] + [per_tile[t] for t in range(nt) if t in per_tile] + [junk]
+    )
+    k = max(fr.TRI_GROUP, -(-int(counts.max()) // fr.TRI_GROUP) * fr.TRI_GROUP)
+    blocks = np.zeros((nt, k, fr.RECORD_F), np.float32)
+    blocks[:, :, fr.F_ID] = -1.0
+    for t, recs in per_tile.items():
+        blocks[t, : len(recs)] = recs
+    return (stream, starts.astype(np.int32), counts.astype(np.int32),
+            blocks)
+
+
+def _kernel_case(case, rng):
+    nt = CFG.n_tiles
+    if case == "empty":
+        return {}, 0
+    if case == "single":
+        rec = _rand_records(rng, 1)
+        rec[0, [2, 5, 8]] = 64.0  # covers the whole tile
+        return {5: rec}, 3
+    if case == "multi_chunk_unaligned":
+        return {0: _rand_records(rng, 7),
+                3: _rand_records(rng, 3 * fr.CHUNK + 5),
+                nt - 1: _rand_records(rng, fr.CHUNK)}, 11
+    if case in ("depth_ties", "depth_ties_track2"):
+        return {t: _rand_records(rng, 2 * fr.CHUNK + t, ties=True)
+                for t in (1, 2, 9)}, 1
+    # "random_track2": many tiles, mixed counts
+    return {t: _rand_records(rng, int(rng.integers(1, 2 * fr.CHUNK)))
+            for t in range(0, nt, 3)}, 6
+
+
+KERNEL_CASES = ["empty", "single", "multi_chunk_unaligned", "depth_ties",
+                "depth_ties_track2", "random_track2"]
+
+
+@pytest.mark.parametrize("case", KERNEL_CASES)
+def test_fine_raster_pairs_matches_xla(case):
+    """The pair-streaming kernel (interpret mode) and fine_raster_xla over
+    the same records per tile must agree exactly: winner depth and id, and
+    with track2 the runner-up pair."""
+    rng = np.random.default_rng(KERNEL_CASES.index(case))
+    per_tile, lead = _kernel_case(case, rng)
+    track2 = case.endswith("track2")
+    stream, starts, counts, blocks = _pairs_and_blocks(
+        per_tile, CFG.n_tiles, lead
+    )
+    got = fr.fine_raster_pairs(
+        jnp.asarray(stream), jnp.asarray(starts), jnp.asarray(counts),
+        interpret=True, track2=track2,
+    )
+    want = raster.fine_raster_xla(
+        jnp.asarray(blocks), jnp.asarray(counts), CFG, track2=track2
+    )
+    assert len(got) == len(want) == (4 if track2 else 2)
+    for g, w_ in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w_))
+    if case == "empty":
+        assert (np.asarray(got[1]) == -1).all()
+    else:
+        assert (np.asarray(got[1]) >= 0).any()
 
 
 def test_lod_selection_by_distance():
@@ -596,12 +682,9 @@ def test_auto_lod_decimation():
 
 # ---------------------------------------------------------------------------
 # Cross-boundary tie collapse: the within-chunk/group c2 mask cannot see a
-# bit-equal twin that lands in a DIFFERENT chunk (pairs kernel, CHUNK=128) or
+# bit-equal twin that lands in a DIFFERENT chunk (pairs kernel, fr.CHUNK) or
 # group (XLA twin, TRI_GROUP=8); the carry merge must collapse it too.
 # ---------------------------------------------------------------------------
-
-from voidin_tpu.ops import fine_raster as fr
-
 
 def _const_record(depth, tri_id, inside=True):
     """Raw coefficient record with constant depth covering every pixel
@@ -646,7 +729,7 @@ def test_runner_up_tie_collapse_across_chunks_pairs():
     counts[0] = E
     d, i, d2, i2 = fr.fine_raster_pairs(
         jnp.asarray(recs), jnp.asarray(starts), jnp.asarray(counts),
-        tiles_x=CFG.tiles_x, interpret=True, track2=True,
+        interpret=True, track2=True,
     )
     assert float(d[0, 0]) == 0.5
     assert float(d2[0, 0]) == 0.25, float(d2[0, 0])
@@ -660,7 +743,7 @@ def test_runner_up_tie_collapse_across_chunks_pairs():
     recs2[fr.CHUNK + 2] = _const_record(0.25, 3.0)
     d, i, d2, i2 = fr.fine_raster_pairs(
         jnp.asarray(recs2), jnp.asarray(starts), jnp.asarray(counts),
-        tiles_x=CFG.tiles_x, interpret=True, track2=True,
+        interpret=True, track2=True,
     )
     assert float(d[0, 0]) == 0.5
     assert float(d2[0, 0]) == 0.25, float(d2[0, 0])

@@ -2,9 +2,7 @@
 
 The planar path evaluates the same arithmetic as the vector path, only on
 (H, W) planes instead of (H, W, 3)-shaped arrays (whose tiny trailing
-dims lane-pad on TPU) — hardware measured the dense resolve MATH (not
-its gathers) at ~36 ms/1080p (tools/r4_probe.py), all of it layout
-waste.
+dims may pad when materialized between fusions).
 
 Certification contract (PARITY.md): the GBuffer fields (packed normal,
 packed uv, material id, depth) are BIT-IDENTICAL — interpolation,

@@ -15,14 +15,14 @@ import pytest
 from voidin_tpu.framework.presets import config6_sponza_textures, find_asset
 from voidin_tpu.scene.texture import pool_device_bytes
 
-HBM_BYTES = 16 << 30  # v5e
+HBM_BYTES = 16 << 30  # device-memory budget the pool layout was sized for
 # 1080p frame working set + capacities + pools stay far under this
 FRAME_RESERVE = 4 << 30
 
 
 def test_sponza_pool_budget():
     """The ~108-slot 1024^2 pool (104 preset textures + 4 reserved ids)
-    fits v5e HBM without the tap-block tables — and provably would NOT
+    fits a 16 GB budget without the tap-block tables — and provably would NOT
     with them, which is why bench.run_preset builds blocks only when the
     tuned variant taps them."""
     n_slots = 104 + 4

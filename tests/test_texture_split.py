@@ -1,8 +1,8 @@
 """16 B split-twin pool tables (TexturePoolData.quads_child/parent).
 
 Big pools (>= texture._SPLIT_MIN_ROWS flattened rows) carry 16 B-row
-twins of the 32 B quad table: above the TPU gather cliff two 16 B
-fetches run ~4x faster than one 32 B fetch (tools/r5_cliff16.py). The
+twins of the 32 B quad table (two 16 B fetches in place of one 32 B
+fetch). The
 twins hold the SAME bytes, so every sample must be bit-identical to the
 unsplit path. The threshold is monkeypatched here so the tests stay
 CPU-sized."""

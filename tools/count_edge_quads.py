@@ -6,9 +6,9 @@
   taa_edge_capacity (quads whose 4 bilinear footprints don't fit one
   4x4 block)
 
-Backend-independent (the XLA-twin raster is bit-identical to the Pallas
-kernel), so this runs on CPU. Quad-rate gathers cost by CAPACITY: keep it
-tight per scene, like tri/pair capacities (CLAUDE.md cost model).
+Backend-independent (the XLA-twin raster matches the pair kernel), so this
+runs on the CPU. Quad-rate gathers cost by CAPACITY: keep it tight per
+scene, like tri/pair capacities.
 
 Usage: python -u tools/count_edge_quads.py [--frames K]
 """
@@ -32,7 +32,9 @@ def main():
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/root/jax_cache")
+    from voidin_tpu.framework.device import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
     import numpy as np
 
@@ -58,12 +60,12 @@ def main():
         tri_cap = pair_cap = 1 << 19
         cam = vt.Camera(position=[0.0, 2.0, 30.0], yaw=0.0, pitch=-5.0,
                         aspect=W / H)
-    # tile_tri_capacity 512, not the bench's 128: the XLA twin bins with a
-    # PER-TILE cap (the pairs path the TPU bench runs has none), and 128
-    # drops records at this pose — the count would be slightly off.
+    # tile_tri_capacity 1024, not the bench's 128: the XLA twin bins with a
+    # PER-TILE cap (the pair kernel the bench runs has none), and the
+    # north-star pose holds up to 636 pairs in one tile.
     cfg = RasterConfig(
         width=W, height=H, tri_capacity=tri_cap, pair_capacity=pair_cap,
-        tile_tri_capacity=512, backend="xla",
+        tile_tri_capacity=1024, backend="xla",
         alpha_mask=getattr(scene, "alpha_masked", False),
     )
     uni = cam.uniform()

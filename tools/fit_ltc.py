@@ -25,13 +25,13 @@ from __future__ import annotations
 
 import argparse
 import os
+import sys
 
 import numpy as np
 
 import jax  # noqa: E402
 
-# NOTE: this jax build ignores the JAX_PLATFORMS env var; config is the only
-# reliable platform pin.
+# The fit runs on the CPU unless FIT_PLATFORM names another backend.
 jax.config.update("jax_platforms", os.environ.get("FIT_PLATFORM", "cpu"))
 jax.config.update("jax_enable_x64", True)  # L3 error terms overflow f32
 import jax.numpy as jnp  # noqa: E402
@@ -346,6 +346,10 @@ def main():
         ),
     )
     args = ap.parse_args()
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from voidin_tpu.framework.device import enable_compile_cache
+
+    enable_compile_cache()
     print("fitting LTC matrices ...")
     ltc1, ltc2 = fit_tables(n_samples=args.samples, steps=args.steps)
     print("integrating sphere-clip table ...")

@@ -1,7 +1,7 @@
-"""voidin-tpu: a TPU-native real-time rendering framework (JAX/XLA/Pallas).
+"""voidin-tpu: a real-time rendering framework in JAX/XLA/Pallas.
 
 A from-scratch rebuild of the capabilities of the wgpu renderer
-pudnax/voidin as a TPU-first design: the whole frame — instance update,
+pudnax/voidin: the whole frame — instance update,
 frustum culling + compacted draw emission, software visibility-buffer
 rasterization, deferred shading with LTC area lights, temporal AA, and
 postprocessing — is one jitted function over device-resident scene state.

@@ -19,7 +19,7 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
-from flax import struct
+from . import struct
 
 from . import mathx
 

@@ -10,11 +10,10 @@ functionalized assert; production traces pay nothing (the helper is a
 no-op passthrough unless the thread-local flag is set at trace time).
 
 The reference relies on wgpu's validation layers for the same class of
-bug (robustBufferAccess clamps; debug builds assert) — this is the TPU
-analogue, where XLA gathers would silently clamp/wrap instead.
+bug (robustBufferAccess clamps; debug builds assert) — this is the XLA
+analogue, where gathers would silently clamp/wrap instead.
 
-Thread-local (not global) for the same reason as
-shading._TRACE_LOCAL.lut_override: concurrent traces on other threads
+Thread-local (not global): concurrent traces on other threads
 (PipelineCache rebuilds, tests) must not inherit the mode.
 """
 

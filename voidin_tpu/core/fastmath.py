@@ -1,17 +1,19 @@
-"""VPU-friendly batched small-matrix arithmetic.
+"""Batched small-matrix arithmetic and resize helpers.
 
 XLA lowers `einsum` with tiny contraction dims (3 or 4) on large batches to
-batched dot_generals that pad each 3x3 multiply onto 128x128 MXU tiles —
-thousands of times more work than the math requires. These helpers express
-the same contractions as explicit elementwise multiply-adds, which XLA
-fuses into surrounding VPU code. Every per-pixel / per-triangle matrix op
-in the frame goes through here.
+batched dot_generals, which break fusion and may run in reduced precision
+(TF32 on GPUs). These helpers express the same contractions as explicit
+elementwise multiply-adds, which XLA fuses into the surrounding code, in
+full f32. Every per-pixel / per-triangle matrix op in the frame goes
+through here; the few real matrix products ask for Precision.HIGHEST.
 """
 
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def mat3_vec(m, v):
@@ -95,24 +97,24 @@ def const_mat_vec(m, v):
 def compose_mat4(a, b):
     """(4, 4) @ (N, 4, 4) -> (N, 4, 4) as one real matmul.
 
-    Contraction written as (4,4) @ (4, N*4) so the MXU sees a wide matrix
-    instead of N tiny ones.
+    Contraction written as (4,4) @ (4, N*4): one wide product instead of N
+    tiny ones. Full f32 (Precision.HIGHEST): these are every instance's
+    MVP and the cull matrices, and TF32 would move vertices and reverse-Z
+    depth.
     """
     n = b.shape[0]
     wide = jnp.transpose(b, (1, 0, 2)).reshape(4, n * 4)
-    out = (a @ wide).reshape(4, n, 4)
+    out = jnp.matmul(a, wide, precision=HIGHEST).reshape(4, n, 4)
     return jnp.transpose(out, (1, 0, 2))
 
 
 def compact_indices(mask_flat, size):
     """Indices of the True entries of a flat bool mask, ascending, padded
     to `size` — the compaction primitive behind every edge-quad / cut-
-    pixel batch. jnp.nonzero(size=) lowers to a FULL-LENGTH scatter
-    (~6.6 ns/row on TPU, ~3.4 ms per megapixel mask); a single-operand
-    sort of fused (mask, reversed-index) keys yields the same first-count
-    indices at ~2 ms/M keys. Pad slots hold arbitrary (False-entry)
-    indices rather
-    than nonzero's fill_value — every call site already masks slots with
+    pixel batch. jnp.nonzero(size=) lowers to a FULL-LENGTH scatter; a
+    single-operand sort of fused (mask, reversed-index) keys yields the
+    same first-count indices. Pad slots hold arbitrary (False-entry)
+    indices rather than nonzero's fill_value — every call site already masks slots with
     arange(size) < count, so results are unchanged."""
     n = mask_flat.shape[0]
     # one-operand sort: pack (mask, reversed index) into a single u32 key
@@ -155,28 +157,26 @@ def _bilinear_matrix(n_out: int, n_in: int, s: int):
 
 def upsample_bilinear_mm(x, s: int, h_out: int, w_out: int):
     """(h, w, C) -> (h_out, w_out, C) bilinear upsample as TWO dot_generals
-    on constant weight matrices — the MXU-native resize. jax.image.resize
-    is also matmul-based but measured slower at 2x on TPU (r4 probe #2);
-    this form keeps the contraction shapes MXU-friendly and constant."""
-    import numpy as np
-
+    on constant weight matrices (Precision.HIGHEST: full f32 weights)."""
     h, w, c = x.shape
     ah = jnp.asarray(_bilinear_matrix(h_out, h, s))
     aw = jnp.asarray(_bilinear_matrix(w_out, w, s))
     # rows: (h_out, h) @ (h, w*c) -> (h_out, w, c)
-    y = (ah @ x.reshape(h, w * c)).reshape(h_out, w, c)
-    # cols: contract w with aw^T: (h_out, w, c) x (w_out, w) -> (h_out, w_out, c)
+    y = jnp.matmul(ah, x.reshape(h, w * c), precision=HIGHEST).reshape(
+        h_out, w, c
+    )
+    # cols: contract w with aw^T: (h_out, w, c) x (w_out, w) -> (h_out, c, w_out)
     y = jax.lax.dot_general(
         y, aw, (((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )  # (h_out, c, w_out)? no: dims = (h_out, c, w_out)
+        precision=HIGHEST, preferred_element_type=jnp.float32,
+    )
     return jnp.transpose(y, (0, 2, 1))
 
 
 def subsample_mm(x, s: int):
     """(h, w, C) -> (h//s', w//s', C) every-s-th-pixel selection as two
-    dot_generals with one-hot matrices — avoids the layout-hostile
-    [::s, ::s] strided slice on TPU. s' rounds up like x[::s]."""
+    dot_generals with one-hot matrices, s' rounding up like x[::s].
+    Precision.HIGHEST keeps the selection exact in f32."""
     import numpy as np
 
     h, w, c = x.shape
@@ -185,9 +185,11 @@ def subsample_mm(x, s: int):
     sh[np.arange(ho), np.arange(ho) * s] = 1.0
     sw = np.zeros((wo, w), dtype=np.float32)
     sw[np.arange(wo), np.arange(wo) * s] = 1.0
-    y = (jnp.asarray(sh) @ x.reshape(h, w * c)).reshape(ho, w, c)
+    y = jnp.matmul(
+        jnp.asarray(sh), x.reshape(h, w * c), precision=HIGHEST
+    ).reshape(ho, w, c)
     y = jax.lax.dot_general(
         y, jnp.asarray(sw), (((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32,
+        precision=HIGHEST, preferred_element_type=jnp.float32,
     )
     return jnp.transpose(y, (0, 2, 1))

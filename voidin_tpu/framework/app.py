@@ -4,7 +4,7 @@ User-facing equivalent of the reference's L5 API
 (crates/app/src/lib.rs:47-205): an Example implements
 init / setup_scene / update / resize / render hooks, and `run()` drives the
 fixed-timestep loop (UPDATES_PER_SECOND = 60, MAX_FRAME_TIME clamp,
-lib.rs:41-43). There is no window on a TPU host, so the runner is headless:
+lib.rs:41-43). There is no window on an accelerator host, so the runner is headless:
 frames go to the recorder (mp4 via ffmpeg, MJPEG-AVI without it), to
 PNG screenshots, or nowhere
 (benchmarking); an interactive viewer can drive `App.step()` manually.

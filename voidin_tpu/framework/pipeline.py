@@ -1,6 +1,6 @@
 """Pipeline cache + hot reload.
 
-TPU analogue of the reference's PipelineArena + Watcher
+Analogue of the reference's PipelineArena + Watcher
 (app/pipeline.rs:32-360, components/src/watcher.rs): pass functions are
 Python modules instead of WGSL files, so "shader hot reload" is module
 re-import + re-jit. The cache maps names to jitted callables, tracks which

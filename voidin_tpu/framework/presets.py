@@ -376,7 +376,7 @@ def config6_sponza_textures(
     HBM accounting (see scene/texture.py pool_device_bytes and
     tests/test_stress.py): the pool stores one 32 B quad row per texel
     over the flattened mip chain — (4/3)S^2 rows = 44.7 MB per texture
-    slot at S=1024, ~4.8 GB for ~107 slots. That fits v5e HBM (16 GB)
+    slot at S=1024, ~4.8 GB for ~107 slots. That fits a 16 GB device
     alongside the 1080p frame working set ONLY with the 4x4 tap-block
     tables off (they are 3x the pool bytes): bench.run_preset already
     builds them solely when the tuned variant taps them, and the budget

@@ -4,17 +4,16 @@ Equivalent of the reference's wgpu_profiler scope tree (ProfilerCommandEncoder,
 app.rs:660-729): per-pass device timings printed as an indented table, gated
 on the GPU_PROFILING env var with a 500-frame cadence (app.rs:417-424).
 
-On this TPU platform `block_until_ready` is a no-op (only host transfers
-sync), so timings come from chained-dispatch slope measurement
-(tools/tpu_timeit.py technique): each pass is jitted separately and timed
-with a forced device->host sync. This measures per-pass steady-state device
-time, not in-frame overlap — the same semantic as the reference's timestamp
-scopes.
+Each pass is jitted separately and timed on the host clock around calls
+ended by `block_until_ready` (median of a few calls after a warm-up). This
+measures per-pass steady-state time, not in-frame overlap — the same
+semantic as the reference's timestamp scopes.
 """
 
 from __future__ import annotations
 
 import os
+import statistics
 import time
 from typing import Callable, Dict, List, Tuple
 
@@ -29,26 +28,19 @@ def profiling_enabled() -> bool:
     return bool(os.environ.get(PROFILING_ENV))
 
 
-def time_fn(fn: Callable, *args, n1: int = 1, n2: int = 4) -> float:
-    """Slope-timed milliseconds for one jitted fn (true device time)."""
+def time_fn(fn: Callable, *args, n: int = 5) -> float:
+    """Median milliseconds of `n` calls of jitted `fn(*args, 0.0)`, each
+    ended by block_until_ready, after one compile/warm-up call. The
+    trailing scalar argument keeps the timed inputs runtime values."""
     f = jax.jit(fn)
-
-    def run(n):
-        eps = jnp.float32(0.0)
-        out = None
-        for _ in range(n):
-            out = f(*args, eps)
-            eps = jax.tree_util.tree_leaves(out)[0].ravel()[0].astype(jnp.float32) * 0
-        return float(eps)
-
-    run(1)
-    t0 = time.perf_counter()
-    run(n1)
-    ta = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    run(n2)
-    tb = time.perf_counter() - t0
-    return (tb - ta) / (n2 - n1) * 1000.0
+    eps = jnp.float32(0.0)
+    jax.block_until_ready(f(*args, eps))
+    ms = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        jax.block_until_ready(f(*args, eps))
+        ms.append((time.perf_counter() - t0) * 1000.0)
+    return statistics.median(ms)
 
 
 def profile_frame(scene, camera, config, state=None, moving_ids=None) -> List[Tuple[str, float]]:
@@ -95,23 +87,36 @@ def profile_frame(scene, camera, config, state=None, moving_ids=None) -> List[Tu
             ),
         )
     )
-    rc = jax.jit(lambda s: raster.bin_triangles(s, config))(setup)
+    # the binning + fine raster the frame itself runs (config.backend)
+    if config.backend == "pallas":
+        from ..ops import fine_raster as fr
+
+        def bin_fn(s):
+            return raster.bin_triangles_pairs(s, config)[:3]
+
+        def raster_fn(b, e):
+            return fr.fine_raster_pairs(
+                b[0] + e, b[1], b[2], interpret=config.interpret,
+                track2=config.alpha_mask,
+            )
+    else:
+        def bin_fn(s):
+            return raster.bin_triangles(s, config)[:2]
+
+        def raster_fn(b, e):
+            return raster.fine_raster_xla(b[0] + e, b[1], config,
+                                          track2=config.alpha_mask)
+    binned = jax.jit(bin_fn)(setup)
     rows.append(
         (
             "binning (pairs+sort)",
-            time_fn(
-                lambda e: raster.bin_triangles({**setup, "sx": setup["sx"] + e}, config)
-            ),
+            time_fn(lambda e: bin_fn({**setup, "sx": setup["sx"] + e})),
         )
     )
     rows.append(
         (
-            "fine raster (pallas)",
-            time_fn(
-                lambda e: raster.fine_raster(
-                    rc[0] + e, rc[1], config, backend=config.backend
-                )
-            ),
+            f"fine raster ({config.backend})",
+            time_fn(lambda e: raster_fn(binned, e)),
         )
     )
     vis = jax.jit(

@@ -1,7 +1,7 @@
 """Interactive terminal viewer — the winit-window + event-loop analogue.
 
 The reference opens a winit window with an egui overlay
-(crates/app/src/lib.rs:120-205); a TPU host has no display, but any
+(crates/app/src/lib.rs:120-205); an accelerator host has no display, but any
 terminal can show 24-bit color: each character cell renders two vertical
 pixels via the upper-half-block glyph (fg = top pixel, bg = bottom pixel).
 This module draws App frames that way and drives the camera from raw-tty

@@ -1,7 +1,7 @@
 """Browser live viewer over HTTP — the winit-window + egui analogue.
 
 The reference opens a native winit window with an egui debug overlay
-(crates/app/src/lib.rs:120-205, app.rs:601-651). A TPU host is headless,
+(crates/app/src/lib.rs:120-205, app.rs:601-651). An accelerator host is headless,
 but every workstation has a browser: `run_web(app)` serves one page that
 streams rendered frames (multipart PNG), forwards keyboard + pointer-drag
 input into the same Input/KeyboardMap/CameraController stack the terminal

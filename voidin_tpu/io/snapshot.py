@@ -92,7 +92,7 @@ def load_scene(path: str) -> Tuple[SceneData, Optional[Camera]]:
             f"this build"
         )
     # Rebuild the treedef from a structurally-identical dummy: field order
-    # of flax dataclasses is deterministic, so flatten order matches.
+    # of core.struct dataclasses is deterministic, so flatten order matches.
     has_tlas = bool(data["aux_has_tlas"][0])
 
     leaves = []
@@ -107,7 +107,7 @@ def load_scene(path: str) -> Tuple[SceneData, Optional[Camera]]:
 
         return [f.name for f in dataclasses.fields(cls)]
 
-    # Reconstruct by consuming leaves in flatten order (flax dataclasses
+    # Reconstruct by consuming leaves in flatten order (core.struct dataclasses
     # flatten pytree fields in declaration order).
     it = iter(leaves)
 

@@ -1,15 +1,10 @@
-"""Pallas TPU kernel: tile-local visibility-buffer fine rasterization.
+"""Pallas (Triton route) kernel: tile-local visibility-buffer fine raster.
 
 Replaces the reference's hardware raster (multi_draw_indexed_indirect +
-shaders/visibility.wgsl) with an MXU-centric software design. Triangle
-records carry PRECOMPUTED AFFINE COEFFICIENTS — for each edge function and
-for the depth plane, (ax, ay, b) with e(p) = ax*px + ay*py + b — instead of
-vertex positions. Evaluating an entire chunk of triangles against a tile's
-128 pixels then becomes FOUR dot_generals on the MXU
-((8, CHUNK) coefficient blocks x (8, 128) pixel basis), and the per-pixel
-depth competition reduces over the record sublane axis. This removes the
-per-column VPU loop and its cross-lane reductions that bounded the
-previous vertex-based kernel (~2x fewer vector ops, edge math on the MXU).
+shaders/visibility.wgsl) with a software design. Triangle records carry
+PRECOMPUTED AFFINE COEFFICIENTS — for each edge function and for the depth
+plane, (ax, ay, b) with e(p) = ax*px + ay*py + b — instead of vertex
+positions, so a record costs three multiply-adds per quantity per pixel.
 
 Precision: coefficients are derived in a per-triangle anchor frame (bbox
 corner) and re-based to each tile's origin at binning time ("baking"), so
@@ -17,23 +12,22 @@ products stay at triangle/tile magnitude — the naive screen-space affine
 form loses ~0.25 absolute in e at 1080p magnitudes and corrupts
 small-triangle rasterization.
 
-Layout (TPU-first):
-* a tile is 8x16 = 128 pixels = one vector register row; pixels sit on
-  LANES, records on SUBLANES of each (CHUNK, 128) candidate block;
-* gather/sort records at 16 f32 (64 B rows gather at ~6.6 ns/row; 128 B
-  rows collapse to ~40 ns — tools/microbench_gather.py), then expand to
-  the kernel's 4x8 quantity-major layout densely (sublane slices must be
-  8-aligned, so each quantity gets an 8-row block, zero padded);
-* per-tile pair ranges are scalar-prefetched; chunks stream through VMEM
-  with double-buffered DMA; cost scales with live pairs.
+Work decomposition: one program per 8x16 screen tile. The program reads
+its own range [starts[t], starts[t] + counts[t]) of the tile-sorted record
+stream and walks it in chunks of `chunk` records with masked loads. Each
+chunk is evaluated against the tile's 128 pixels as (chunk, 128) f32
+multiply-adds on the CUDA cores (an affine function with three terms has
+no useful tensor-core form, and TF32 would break the `e >= 0` tests), then
+max-reduced over the chunk axis; the running (depth, id) — and (depth2,
+id2) with `track2` — stay in registers and are stored once. Cost scales
+with live pairs, not with a per-tile capacity.
 
-Gathered record fields (RECORD_F = 16, f32):
+Record fields (RECORD_F = 16 f32 = one 64 B row, read as is):
   0..8  edge coefficients   [ax0 ay0 b0  ax1 ay1 b1  ax2 ay2 b2]
   9..11 depth coefficients  [axd ayd bd]
   12    triangle id as f32 (-1 = invalid)
   13,14 anchor (x, y) — consumed by the binning bake, pad afterwards
-Kernel layout (KREC_F = 32): quantity-major [axq ayq bq 0 0 0 0 0] x 4,
-with the id in quantity block 3 row 3 (selected by a basis column).
+  15    max vertex z (sliver clamp)
 """
 
 from __future__ import annotations
@@ -43,7 +37,7 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
 RECORD_F = 16
 F_E = 0  # 9 edge coefficients
@@ -52,436 +46,126 @@ F_ID = 12
 F_ANCHOR = 13  # anchor x, y
 F_ZMAX = 15  # max vertex z: clamps the affine depth (sliver guard)
 
-KREC_F = 32  # kernel-side quantity-major layout (4 x 8 rows)
-
 TILE_H = 8
 TILE_W = 16
-TILE_PX = TILE_H * TILE_W  # 128 = one vreg row
-TRI_GROUP = 8
+TILE_PX = TILE_H * TILE_W  # 128 pixels per tile
+TRI_GROUP = 8  # record group of the XLA twin (passes/raster.fine_raster_xla)
 
-CHUNK = 128  # records per chunk: one (KREC_F, 128) DMA block
+# Records per loop step, and warps per program: chunks of 16/32/64 records
+# with 2/4/8 warps all ran in 0.38-0.61 ms on the north-star pair stream
+# (H100 SXM, 700 W); 32 x 8 was within 4% of the fastest (PERF.md).
+CHUNK = 32
+NUM_WARPS = 8
 
 
-def expand_records_kernel_layout(rec: jnp.ndarray) -> jnp.ndarray:
-    """(N, RECORD_F) gathered records -> (N, KREC_F) quantity-major rows.
+def _kernel(starts_ref, counts_ref, rec_ref, depth_ref, id_ref, *rest,
+            chunk, track2):
+    t = pl.program_id(0)
+    start = starts_ref[t]
+    count = counts_ref[t]
+    lane = jnp.arange(TILE_PX, dtype=jnp.int32)
+    px = ((lane % TILE_W).astype(jnp.float32) + 0.5)[None, :]  # (1, 128)
+    py = ((lane // TILE_W).astype(jnp.float32) + 0.5)[None, :]
+    row = jnp.arange(chunk, dtype=jnp.int32)
 
-    Each quantity q in {e0, e1, e2, depth} occupies rows 8q..8q+2 of the
-    kernel record (ax, ay, b), the rest zero; the id sits at row 3 of the
-    depth block (8*3+3 = 27) where the depth basis column is zero.
-    """
-    n = rec.shape[0]
-    out = jnp.zeros((n, KREC_F), rec.dtype)
-    for q in range(3):  # edges
-        out = out.at[:, 8 * q : 8 * q + 3].set(
-            rec[:, 3 * q : 3 * q + 3]
+    def body(c, carry):
+        live = row < count - c * chunk  # (chunk,) records of THIS tile
+        rows = pl.ds(start + c * chunk, chunk)
+
+        def col(f):  # (chunk, 1): field f of the chunk's records
+            v = plt.load(rec_ref.at[rows, f], mask=live, other=0.0)
+            return v[:, None]
+
+        def plane(f):  # (chunk, 128) affine function of fields f..f+2
+            return col(f) * px + col(f + 1) * py + col(f + 2)
+
+        inside = (
+            (plane(F_E) >= 0.0) & (plane(F_E + 3) >= 0.0)
+            & (plane(F_E + 6) >= 0.0) & live[:, None]
         )
-    out = out.at[:, 24:27].set(rec[:, F_D : F_D + 3])
-    out = out.at[:, 27].set(rec[:, F_ID])
-    out = out.at[:, 28].set(rec[:, F_ZMAX])
-    return out
+        idt = col(F_ID)
+        # clamp: precomputed 1/area2 loses the per-pixel form's convexity;
+        # a sliver's amplified depth must not steal pixels in front of its
+        # own true depth range
+        cand = jnp.where(inside, jnp.minimum(plane(F_D), col(F_ZMAX)), -1.0)
+        gmax = jnp.max(cand, axis=0)  # (128,)
+        top = cand == gmax[None, :]
+        gid = jnp.max(jnp.where(top, idt, -1.0), axis=0)
+        bd, bi = carry[0], carry[1]
+        take = gmax > bd
+        nbd = jnp.where(take, gmax, bd)
+        nbi = jnp.where(take, gid, bi)
+        if not track2:
+            return nbd, nbi
+        bd2, bi2 = carry[2], carry[3]
+        # Runner-up among DISTINCT triangles: within-chunk 2nd place (mask
+        # the argmax rows), then a sorted-pair merge with the running
+        # (best, second). Deliberate: ALL records at the winner's depth are
+        # masked, not just the winner's id. An id-aware tie-break is WRONG
+        # for the dominant tie source — a quad's own two triangles meet
+        # along the diagonal at bit-equal depth, and the surviving twin is
+        # cut at the same texel, exhausting the single fallback level and
+        # leaking background. Collapsing ties instead falls through to the
+        # geometry BEHIND the quad (correct); the cost is the pathological
+        # coplanar-duplicate-cutout case, documented.
+        c2 = jnp.where(top, -1.0, cand)
+        g2 = jnp.max(c2, axis=0)
+        g2id = jnp.max(jnp.where(c2 == g2[None, :], idt, -1.0), axis=0)
+        g2id = jnp.where(g2 > 0.0, g2id, -1.0)
+        # Demoted best for the cross-chunk merge. When the chunk's winner
+        # bit-equals the running best (take is False, gmax == bd) it is a
+        # TIE of the overall winner — e.g. a quad's twin landing in a
+        # different chunk — and must be collapsed exactly like the
+        # within-chunk ties above, not tracked as runner-up.
+        lv = jnp.where(take, bd, jnp.where(gmax == bd, -1.0, gmax))
+        li = jnp.where(take, bi, gid)
+        t2 = g2 > bd2
+        m2v = jnp.where(t2, g2, bd2)
+        m2i = jnp.where(t2, g2id, bi2)
+        t3 = lv > m2v
+        return nbd, nbi, jnp.where(t3, lv, m2v), jnp.where(t3, li, m2i)
 
-
-def _pixel_basis():
-    """(8, TILE_PX) basis P with rows [px, py, 1, 0, ...] in tile-local
-    pixel-center coordinates; lane l -> pixel (l // 16, l % 16)."""
-    lane = jax.lax.broadcasted_iota(jnp.int32, (1, TILE_PX), 1)
-    px = (jnp.mod(lane, TILE_W)).astype(jnp.float32) + 0.5
-    py = (lane // TILE_W).astype(jnp.float32) + 0.5
-    one = jnp.ones((1, TILE_PX), jnp.float32)
-    zero = jnp.zeros((5, TILE_PX), jnp.float32)
-    return jnp.concatenate([px, py, one, zero], axis=0)
-
-
-def _row_basis(row: int):
-    """(8, TILE_PX) basis selecting one row of the depth block in every
-    lane — 'extraction' as a full-width matmul producing the value
-    broadcast across pixels. (An (8, 1) single-column dot would be cheaper
-    but MISCOMPILES on real TPUs: values diverge from interpret mode while
-    full-width dots are exact — keep N = 128.)"""
-    r = jax.lax.broadcasted_iota(jnp.int32, (8, TILE_PX), 0)
-    return (r == row).astype(jnp.float32)
-
-
-def _dot(a, b):
-    """(8, CHUNK) x (8, M) -> (CHUNK, M), contracting the sublane dim."""
-    return jax.lax.dot_general(
-        a, b, (((0,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
-
-
-def _kernel_pairs(
-    starts_ref,
-    counts_ref,
-    rec_hbm,  # (n_chunks, KREC_F, CHUNK) f32, quantity-major per chunk
-    *rest,  # [pay_hbm], out refs, then scratch(es), sems
-    tiles_per_step,
-    tiles_x,
-    track2=False,
-    pay_f=0,
-):
-    if pay_f:
-        if track2:
-            (pay_hbm, depth_ref, id_ref, depth2_ref, id2_ref, pay_ref,
-             scratch, pscratch, sems, psems) = rest
-        else:
-            (pay_hbm, depth_ref, id_ref, pay_ref, scratch, pscratch, sems,
-             psems) = rest
-    elif track2:
-        depth_ref, id_ref, depth2_ref, id2_ref, scratch, sems = rest
-    else:
-        depth_ref, id_ref, scratch, sems = rest
-    step = pl.program_id(0)
-    P = _pixel_basis()  # (8, 128)
-    Pid = _row_basis(3)  # id slot
-    Pzm = _row_basis(4)  # zmax slot
-    srow = jax.lax.broadcasted_iota(jnp.int32, (CHUNK, 1), 0)
-
-    def dma(j, slot, chunk0, c):
-        return pltpu.make_async_copy(
-            rec_hbm.at[chunk0 + c],
-            scratch.at[j, slot],
-            sems.at[j, slot],
-        )
-
-    def pdma(j, slot, chunk0, c):
-        return pltpu.make_async_copy(
-            pay_hbm.at[chunk0 + c],
-            pscratch.at[j, slot],
-            psems.at[j, slot],
-        )
-
-    # Prologue: first chunk of every non-empty tile in flight at once.
-    # (Start/wait MUST balance per semaphore — they persist across steps.)
-    for j in range(tiles_per_step):
-        tile = step * tiles_per_step + j
-
-        @pl.when(counts_ref[tile] > 0)
-        def _(j=j, tile=tile):
-            dma(j, 0, starts_ref[tile] // CHUNK, 0).start()
-            if pay_f:
-                pdma(j, 0, starts_ref[tile] // CHUNK, 0).start()
-
-    for j in range(tiles_per_step):
-        tile = step * tiles_per_step + j
-        start = starts_ref[tile]
-        count = counts_ref[tile]
-        chunk0 = start // CHUNK
-        offset = start - chunk0 * CHUNK  # 0..127
-        span = offset + count
-        n_chunks = jnp.where(count > 0, (span + CHUNK - 1) // CHUNK, 0)
-
-        def body(c, carry):
-            @pl.when(c + 1 < n_chunks)
-            def _():
-                dma(j, jax.lax.rem(c + 1, 2), chunk0, c + 1).start()
-                if pay_f:
-                    pdma(j, jax.lax.rem(c + 1, 2), chunk0, c + 1).start()
-
-            dma(j, jax.lax.rem(c, 2), chunk0, c).wait()
-            if pay_f:
-                pdma(j, jax.lax.rem(c, 2), chunk0, c).wait()
-
-            def one_slot(blk, pblk=None):  # (KREC_F, CHUNK)
-                # Records in [offset, span) of the tile's range only —
-                # chunk boundaries may hold neighbors' (differently
-                # baked) records.
-                in_range = (srow >= offset - c * CHUNK) & (
-                    srow < span - c * CHUNK
-                )  # (CHUNK, 1)
-
-                def q(i):  # (8, CHUNK) quantity block
-                    return blk[8 * i : 8 * (i + 1), :]
-
-                e0 = _dot(q(0), P)  # (CHUNK, 128)
-                e1 = _dot(q(1), P)
-                e2 = _dot(q(2), P)
-                d = _dot(q(3), P)
-                idt = _dot(q(3), Pid)  # (CHUNK, 128): id broadcast per lane
-                zmax = _dot(q(3), Pzm)
-                inside = (
-                    (e0 >= 0.0) & (e1 >= 0.0) & (e2 >= 0.0) & in_range
-                )
-                # clamp: precomputed 1/area2 loses the per-pixel form's
-                # convexity; a sliver's amplified depth must not steal
-                # pixels in front of its own true depth range
-                cand = jnp.where(inside, jnp.minimum(d, zmax), -1.0)
-                gmax = jnp.max(cand, axis=0, keepdims=True)  # (1, 128)
-                gid = jnp.max(
-                    jnp.where(cand == gmax, idt, -1.0), axis=0,
-                    keepdims=True,
-                )
-                if track2:
-                    bd, bi, bd2, bi2 = carry[:4]
-                else:
-                    bd, bi = carry[:2]
-                take = gmax > bd
-                nbd = jnp.where(take, gmax, bd)
-                nbi = jnp.where(take, gid, bi)
-                npay = ()
-                if pay_f:
-                    # Winner-payload contraction: ONE MXU dot selects the
-                    # chunk winner's payload row per pixel (a record id
-                    # appears once per tile, so the one-hot has a single
-                    # live sublane per lane); the cross-chunk merge
-                    # follows the id merge exactly, so the final payload
-                    # is bit-identical to resolve_rec[winner_id] — the
-                    # gather the resolve pass no longer issues.
-                    onehot = (
-                        inside & (cand == gmax) & (idt == gid)
-                    ).astype(jnp.float32)  # (CHUNK, 128)
-                    pay_c = jax.lax.dot_general(
-                        pblk, onehot, (((1,), (0,)), ((), ())),
-                        preferred_element_type=jnp.float32,
-                        precision=jax.lax.Precision.HIGHEST,
-                    )  # (PAY_F, 128)
-                    npay = (jnp.where(take, pay_c, carry[-1]),)
-                if not track2:
-                    return (nbd, nbi) + npay
-                # Runner-up among DISTINCT triangles: within-chunk 2nd
-                # place (mask the argmax sublanes), then a sorted-pair
-                # merge with the running (best, second). Deliberate: ALL
-                # records at the winner's depth are masked, not just the
-                # winner's id. An id-aware tie-break was tried (round 3)
-                # and is WRONG for the dominant tie source — a quad's own
-                # two triangles meet along the diagonal at bit-equal
-                # depth, and the surviving twin is cut at the same texel,
-                # exhausting the single fallback level and leaking
-                # background. Collapsing ties instead falls through to the
-                # geometry BEHIND the quad (correct); the cost is the
-                # pathological coplanar-duplicate-cutout case, documented.
-                c2 = jnp.where(cand == gmax, -1.0, cand)
-                g2 = jnp.max(c2, axis=0, keepdims=True)
-                g2id = jnp.max(
-                    jnp.where(c2 == g2, idt, -1.0), axis=0, keepdims=True
-                )
-                g2id = jnp.where(g2 > 0.0, g2id, -1.0)
-                # Demoted best for the cross-chunk merge. When the chunk's
-                # winner bit-equals the running best (take is False,
-                # gmax == bd) it is a TIE of the overall winner — e.g. a
-                # quad's twin landing in a different chunk — and must be
-                # collapsed exactly like the within-chunk ties above, not
-                # tracked as runner-up.
-                lv = jnp.where(
-                    take, bd, jnp.where(gmax == bd, -1.0, gmax)
-                )
-                li = jnp.where(take, bi, gid)
-                t2 = g2 > bd2
-                m2v = jnp.where(t2, g2, bd2)
-                m2i = jnp.where(t2, g2id, bi2)
-                t3 = lv > m2v
-                return (
-                    nbd, nbi,
-                    jnp.where(t3, lv, m2v), jnp.where(t3, li, m2i),
-                ) + npay
-
-            if pay_f:
-                return jax.lax.cond(
-                    jax.lax.rem(c, 2) == 0,
-                    lambda: one_slot(scratch[j, 0], pscratch[j, 0]),
-                    lambda: one_slot(scratch[j, 1], pscratch[j, 1]),
-                )
-            return jax.lax.cond(
-                jax.lax.rem(c, 2) == 0,
-                lambda: one_slot(scratch[j, 0]),
-                lambda: one_slot(scratch[j, 1]),
-            )
-
-        zeros = jnp.zeros((1, TILE_PX), jnp.float32)
-        negs = jnp.full((1, TILE_PX), -1.0)
-        init = (zeros, negs, zeros, negs) if track2 else (zeros, negs)
-        if pay_f:
-            init = init + (jnp.zeros((pay_f, TILE_PX), jnp.float32),)
-        out = jax.lax.fori_loop(0, n_chunks, body, init)
-        depth_ref[j] = out[0][0]
-        id_ref[j] = out[1][0]
-        if track2:
-            depth2_ref[j] = out[2][0]
-            id2_ref[j] = out[3][0]
-        if pay_f:
-            pay_ref[j] = out[-1]
+    zeros = jnp.zeros((TILE_PX,), jnp.float32)
+    negs = jnp.full((TILE_PX,), -1.0, jnp.float32)
+    init = (zeros, negs, zeros, negs) if track2 else (zeros, negs)
+    n_chunks = (count + chunk - 1) // chunk
+    out = jax.lax.fori_loop(0, n_chunks, body, init)
+    for ref, v in zip((depth_ref, id_ref) + tuple(rest), out):
+        ref[...] = v
 
 
 def fine_raster_pairs(
-    records_sorted: jnp.ndarray,  # (E + pad, RECORD_F) f32, tile-sorted,
-    # with b coefficients already baked to each pair's tile origin
+    records_sorted: jnp.ndarray,  # (E, RECORD_F) f32, tile-sorted, with b
+    # coefficients already baked to each pair's tile origin
     starts: jnp.ndarray,  # (NT,) i32 first pair slot per tile
     counts: jnp.ndarray,  # (NT,) i32 pairs per tile (uncapped)
-    tiles_x: int,
-    tiles_per_step: int = 8,
     interpret: bool = False,
     track2: bool = False,
-    payload: jnp.ndarray = None,  # (E + pad, PAY_F) f32, PAY_F % 8 == 0,
-    # per-pair winner payload rows (MXU-safe: no NaN/Inf bit patterns —
-    # bitcast u32/f16 columns must ride as 16-bit integer halves)
+    chunk: int = CHUNK,
+    num_warps: int = NUM_WARPS,
 ):
     """Returns (depth, id) (NT, TILE_PX) f32 each; with `track2` also the
-    per-pixel runner-up (depth2, id2) for alpha-cutoff fallback; with
-    `payload` also (NT, PAY_F, TILE_PX) — the winner's payload row per
-    pixel, contracted on the MXU while the tile's records sit in VMEM
-    (replaces the resolve pass's per-pixel record gather)."""
+    per-pixel runner-up (depth2, id2) for the alpha-cutoff fallback.
+
+    `interpret=True` runs the kernel on the CPU (tests)."""
     nt = starts.shape[0]
-    e_pad, rf = records_sorted.shape
-    assert rf == RECORD_F and nt % tiles_per_step == 0 and e_pad % CHUNK == 0
-    krec = expand_records_kernel_layout(records_sorted)
-    # chunk-major quantity-major layout: [chunk, kernel-field, record]
-    rec_chunks = jnp.transpose(
-        krec.reshape(e_pad // CHUNK, CHUNK, KREC_F), (0, 2, 1)
-    )
-    pay_f = 0
-    operands = [starts, counts, rec_chunks]
-    if payload is not None:
-        pay_f = payload.shape[1]
-        assert payload.shape[0] == e_pad and pay_f % 8 == 0
-        operands.append(
-            jnp.transpose(
-                payload.reshape(e_pad // CHUNK, CHUNK, pay_f), (0, 2, 1)
-            )
-        )
-    grid = (nt // tiles_per_step,)
-    kernel = functools.partial(
-        _kernel_pairs, tiles_per_step=tiles_per_step, tiles_x=tiles_x,
-        track2=track2, pay_f=pay_f,
-    )
+    assert records_sorted.shape[1] == RECORD_F
+    assert chunk & (chunk - 1) == 0, "Triton blocks are powers of two"
+    if interpret:
+        # The interpreter slices with lax.dynamic_slice, which clamps a
+        # window that runs past the end instead of masking it; the compiled
+        # kernel never dereferences masked rows, so only it skips the pad.
+        records_sorted = jnp.pad(records_sorted, ((0, chunk), (0, 0)))
     n_out = 4 if track2 else 2
-    out_spec = pl.BlockSpec(
-        (tiles_per_step, TILE_PX),
-        lambda s, a, b: (s, 0),
-        memory_space=pltpu.VMEM,
-    )
-    out_specs = [out_spec] * n_out
-    out_shapes = [jax.ShapeDtypeStruct((nt, TILE_PX), jnp.float32)] * n_out
-    scratch = [
-        pltpu.VMEM((tiles_per_step, 2, KREC_F, CHUNK), jnp.float32),
-    ]
-    if pay_f:
-        out_specs.append(
-            pl.BlockSpec(
-                (tiles_per_step, pay_f, TILE_PX),
-                lambda s, a, b: (s, 0, 0),
-                memory_space=pltpu.VMEM,
-            )
-        )
-        out_shapes.append(
-            jax.ShapeDtypeStruct((nt, pay_f, TILE_PX), jnp.float32)
-        )
-        scratch.append(
-            pltpu.VMEM((tiles_per_step, 2, pay_f, CHUNK), jnp.float32)
-        )
-    scratch.append(pltpu.SemaphoreType.DMA((tiles_per_step, 2)))
-    if pay_f:
-        scratch.append(pltpu.SemaphoreType.DMA((tiles_per_step, 2)))
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=grid,
-        in_specs=[pl.BlockSpec(memory_space=pl.ANY)] * (len(operands) - 2),
-        out_specs=out_specs,
-        scratch_shapes=scratch,
-    )
+    out_spec = pl.BlockSpec((None, TILE_PX), lambda t: (t, 0))
     outs = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=out_shapes,
+        functools.partial(_kernel, chunk=chunk, track2=track2),
+        grid=(nt,),
+        out_specs=[out_spec] * n_out,
+        out_shape=[jax.ShapeDtypeStruct((nt, TILE_PX), jnp.float32)] * n_out,
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=num_warps, num_stages=1),
         interpret=interpret,
-    )(*operands)
+        name="fine_raster_pairs",
+    )(starts, counts, records_sorted)
     return tuple(outs)
-
-
-def _kernel(counts_ref, rec_ref, depth_ref, id_ref, *, k_cap, tiles_per_step,
-            tiles_x):
-    """Block-centric variant: per-tile K-capped record blocks delivered by
-    the Pallas pipeline (no manual DMA). Coefficient records, b's baked to
-    the tile origin by bin_triangles."""
-    lane = jax.lax.broadcasted_iota(jnp.int32, (1, TILE_PX), 1)
-    px = (jnp.mod(lane, TILE_W)).astype(jnp.float32) + 0.5
-    py = (lane // TILE_W).astype(jnp.float32) + 0.5
-
-    for j in range(tiles_per_step):
-        tile = pl.program_id(0) * tiles_per_step + j
-        count = jnp.minimum(counts_ref[tile], k_cap)
-        n_groups = (count + TRI_GROUP - 1) // TRI_GROUP
-
-        def body(g, carry):
-            best_d, best_i = carry  # (1, 128) each
-            base = pl.multiple_of(g * TRI_GROUP, TRI_GROUP)
-            blk = rec_ref[j, pl.ds(base, TRI_GROUP), :]  # (8, RECORD_F)
-
-            def fld(f):  # (8, 1) field column for the triangle group
-                return blk[:, f : f + 1]
-
-            e0 = fld(0) * px + fld(1) * py + fld(2)  # (8, 128)
-            e1 = fld(3) * px + fld(4) * py + fld(5)
-            e2 = fld(6) * px + fld(7) * py + fld(8)
-            depth = jnp.minimum(
-                fld(F_D) * px + fld(F_D + 1) * py + fld(F_D + 2),
-                fld(F_ZMAX),  # sliver guard (see pack_raster)
-            )
-            idf = fld(F_ID)
-            in_count = (
-                base + jax.lax.broadcasted_iota(jnp.int32, (TRI_GROUP, 1), 0)
-                < count
-            )
-            inside = (
-                (e0 >= 0.0) & (e1 >= 0.0) & (e2 >= 0.0)
-                & (idf >= 0.0) & in_count
-            )
-            cand = jnp.where(inside, depth, -1.0)
-            gmax = jnp.max(cand, axis=0, keepdims=True)  # (1, 128)
-            gid = jnp.max(
-                jnp.where(cand == gmax, idf, -1.0), axis=0, keepdims=True
-            )
-            take = gmax > best_d
-            return (
-                jnp.where(take, gmax, best_d),
-                jnp.where(take, gid, best_i),
-            )
-
-        init = (jnp.zeros((1, TILE_PX), jnp.float32), jnp.full((1, TILE_PX), -1.0))
-        best_d, best_i = jax.lax.fori_loop(0, n_groups, body, init)
-        depth_ref[j, :] = best_d[0]
-        id_ref[j, :] = best_i[0]
-
-
-def fine_raster_pallas(
-    records: jnp.ndarray,  # (NT, K, RECORD_F) f32, tile-baked coefficients
-    counts: jnp.ndarray,  # (NT,) i32 per-tile triangle counts
-    tiles_x: int,
-    tiles_per_step: int = 16,
-    interpret: bool = False,
-):
-    """Returns (depth (NT, 128) f32, id (NT, 128) f32)."""
-    nt, k_cap, rf = records.shape
-    assert rf == RECORD_F and nt % tiles_per_step == 0 and k_cap % TRI_GROUP == 0
-    grid = (nt // tiles_per_step,)
-    kernel = functools.partial(
-        _kernel, k_cap=k_cap, tiles_per_step=tiles_per_step, tiles_x=tiles_x
-    )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(
-                (tiles_per_step, k_cap, RECORD_F),
-                lambda s, c: (s, 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=[
-            pl.BlockSpec(
-                (tiles_per_step, TILE_PX), lambda s, c: (s, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (tiles_per_step, TILE_PX), lambda s, c: (s, 0), memory_space=pltpu.VMEM
-            ),
-        ],
-    )
-    depth, tri = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((nt, TILE_PX), jnp.float32),
-            jax.ShapeDtypeStruct((nt, TILE_PX), jnp.float32),
-        ],
-        interpret=interpret,
-    )(counts, records)
-    return depth, tri

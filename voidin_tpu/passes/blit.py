@@ -2,7 +2,7 @@
 
 Equivalent of the reference Blitter (components/src/blitter.rs:9-240): the
 final present blit with optional sRGB encode, and mip generation by
-iterated 2x2 downsampling (blitter.rs:139-200). On TPU these are dense
+iterated 2x2 downsampling (blitter.rs:139-200). Here these are dense
 array ops; the "formats" are dtypes."""
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 The reference runs a wg-64 compute pass per instance writing one
 DrawIndexedIndirect with instance_count 0/1 (shaders/emit_draws.wgsl:37-63);
-the hardware then consumes the indirect buffer. On TPU the same
+the hardware then consumes the indirect buffer. Here the same
 device-driven loop is a dense visibility test over all N instances followed
 by a stream compaction (cumsum + scatter) producing a *compact* draw list —
 no host roundtrip, everything inside the frame jit.
@@ -15,7 +15,7 @@ near/far test can never cull with zfar = inf; we reproduce that.)
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from ..core import struct
 
 from ..core import fastmath, mathx
 from ..scene.instance import InstanceData

@@ -13,7 +13,7 @@ and the ViewTarget ping-pong pair of HDR color targets
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from ..core import struct
 
 
 @struct.dataclass
@@ -45,8 +45,3 @@ class VisBuffer:
     # must NOT win the depth competition — resolve falls back to this.
     tri_id2: jnp.ndarray = None  # (H, W) i32 or None
     depth2: jnp.ndarray = None  # (H, W) f32 or None
-    # Winner payload contracted IN the raster kernel while the tile's
-    # records sit in VMEM (RasterConfig.kernel_payload): bit-identical to
-    # resolve_rec[max(tri_id, 0)], so resolve skips its per-pixel record
-    # gather entirely (ops/fine_raster.py payload contraction).
-    payload_img: jnp.ndarray = None  # (H, W, 24) f32 or None

@@ -1,7 +1,7 @@
 """On-image HUD: frame statistics burned into the frame by a final pass.
 
 The reference shows an egui debug window with the frame time
-(src/bin/model.rs:221-228); there is no window system on a TPU host, so the
+(src/bin/model.rs:221-228); there is no window system on an accelerator host, so the
 HUD is a tiny 5x7 bitmap-font blit composited inside the jitted frame
 (SURVEY.md §5.5). Supports digits, '.', ':', 'm', 's', 'f', 'p' — enough
 for "FPS: 60.0" / "ms: 16.6"."""

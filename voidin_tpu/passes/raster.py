@@ -1,15 +1,15 @@
-"""Tile-binned software visibility-buffer rasterizer (TPU-first).
+"""Tile-binned software visibility-buffer rasterizer.
 
 Replaces the reference's hardware raster path (multi_draw_indexed_indirect +
-visibility.wgsl) with a design built around measured TPU cost realities:
+visibility.wgsl) with a sort-middle software design:
 
-* gathers are element-RATE bound (~4 ns/row up to ~64 B rows) — so every
-  per-element fetch is ONE wide packed record, never several narrow ones;
-* searchsorted is pathological (a 20-step serial gather chain per query) —
-  variable-rate expansions use scatter-of-boundaries + cummax instead;
-* sorts are cheap (~2 ms/M) — binning sorts (tile, triangle) pairs;
+* every per-element fetch is ONE wide packed record, never several narrow
+  ones;
+* variable-rate expansions use scatter-of-boundaries + cummax instead of
+  searchsorted;
+* binning sorts (tile, triangle) pairs;
 * the per-pixel depth competition runs in a Pallas kernel
-  (ops/fine_raster.py) with everything VMEM-resident.
+  (ops/fine_raster.py), one program per screen tile.
 
 Pipeline:
   1. setup: expand the compact draw stream into triangle work items,
@@ -22,9 +22,9 @@ Pipeline:
      slot; multi-tile extras expand at pair_capacity/4) -> sort by tile ->
      gather records into tile order -> bake b coefficients to each pair's
      tile origin.
-  3. fine raster: Pallas kernel (ops/fine_raster.py) — each 128-record
-     chunk vs a tile's 128 pixels is four MXU dot_generals; the reverse-Z
-     depth/id competition reduces over record sublanes.
+  3. fine raster: Pallas kernel (ops/fine_raster.py) — each program walks
+     its tile's range of the sorted record stream in small chunks; the
+     reverse-Z depth/id competition reduces over the chunk's records.
 
 Depth semantics: reverse-Z max (Greater compare, pass/visibility.rs:127-133)
 with ndc.z affine in screen space.
@@ -53,10 +53,11 @@ class RasterConfig:
     height: int = 1080
     tri_capacity: int = 1 << 20  # max live triangle work items per frame
     pair_capacity: int = 1 << 22  # max (triangle, tile) pairs
-    tile_tri_capacity: int = 128  # max triangles rasterized per tile
-    tiles_per_step: int = 8  # Pallas grid batching
-    interpret: bool = False  # Pallas interpret mode (CPU tests)
-    backend: str = "pallas"  # "pallas" | "xla" (sharded dryruns)
+    tile_tri_capacity: int = 128  # max triangles per tile ("xla" backend)
+    interpret: bool = False  # Pallas interpret mode (CPU backend only)
+    # "pallas": pair-streaming kernel (ops/fine_raster.py), no per-tile
+    # capacity; "xla": fine_raster_xla over tile_tri_capacity blocks.
+    backend: str = "pallas"
     # Track the second-place depth candidate per pixel so resolve can apply
     # the per-texel alpha cutoff INSIDE the depth competition
     # (visibility.wgsl:79-81 discard semantics). Costs ~15% fine-raster
@@ -81,22 +82,21 @@ class RasterConfig:
     # rows): resolve then issues ONE big-table gather per pixel instead of
     # two, at the price of a per-work-item gather at setup and wider rows
     # (48 B rows gather ~25% faster than 64 B — the win is not obvious;
-    # A/B on TPU before enabling).
+    # Off until measured).
     fused_resolve_rec: bool = False
     # Pack the fused per-instance record (resolve._inst_rec, 24 f32 =
     # 96 B) as f16 pairs bitcast into 12 u32 columns = 48 B — ONE
     # flat-rate gather row per pixel instead of a 96 B row. f16 keeps
     # ids (< 2048) and texture extents exact; basis/color fields land
-    # well inside the 1e-2 image budget (test_inst_rec_f16_...). A/B on
-    # TPU before enabling.
+    # well inside the 1e-2 image budget (test_inst_rec_f16_...). Off until
+    # measured.
     inst_rec_f16: bool = False
     # Channel-major resolve math (resolve._pixel_fields_planar): the
     # identical per-pixel arithmetic on (H, W) planes instead of
     # (H, W, 3)-shaped vectors, whose tiny trailing dims lane-pad to 128
     # when XLA materializes them between fusion barriers. Bit-exact
     # (tests/test_resolve_planar.py). Dense path only — ignored when a
-    # coherence path (quad/slot/tap_block) is on. A/B on TPU before
-    # enabling.
+    # coherence path (quad/slot/tap_block) is on. Off until measured.
     planar_resolve: bool = False
     # Fold the f16 fused instance+material record (resolve._inst_rec_f16)
     # INTO the resolve record at setup time: the 12 u32 columns ride the
@@ -105,11 +105,8 @@ class RasterConfig:
     # inst_rec_f16 (identical bits, different route —
     # tests/test_raster.py). Requires fused_resolve_rec + inst_rec_f16;
     # the renderer threads the instance table through
-    # rasterize(inst_rec=...). MEASURED SLOWER on TPU (AB_OPTIONS 08-19:
-    # all_lut_pi 69.9 vs all_lut_p 63.1 ms): the 144 B row leaves the
-    # flat-cost gather regime, costing more than the separate 96+48 B
-    # gathers it replaces. Kept as a swept option; the sweep won't pick
-    # it, and the row-count model alone must never enable it.
+    # rasterize(inst_rec=...). Off until measured: the 144 B row trades
+    # one gather row per pixel for a wider row.
     fused_inst_rec: bool = False
     # Slim single-row resolve record (96 B, 24 cols): clip x/y/w (9 f32) +
     # corner uv (6 f32) + WORLD-space octahedral corner normals (3 u32,
@@ -125,8 +122,7 @@ class RasterConfig:
     # deviation overall (tests/test_resolve_slim.py). Requires a scene
     # with no normal maps, const-folded 1x1 emissive/metallic-roughness
     # textures, and no alpha masking (the Renderer auto-falls-back to
-    # fused_resolve_rec + inst_rec_f16 otherwise). A/B on TPU before
-    # enabling.
+    # fused_resolve_rec + inst_rec_f16 otherwise). Off until measured.
     slim_rec: bool = False
     # Coherence-aware resolve (resolve._quad_fetch): issue the three
     # per-pixel resolve row gathers once per UNIFORM 2x2 pixel quad
@@ -134,7 +130,7 @@ class RasterConfig:
     # edge quads via a compacted flat batch. Bit-exact with the per-pixel
     # path (same rows, same math); cuts resolve's gather rows ~2x at
     # typical 1080p edge densities. Mutually exclusive with
-    # fused_resolve_rec. A/B on TPU before enabling.
+    # fused_resolve_rec. Off until measured.
     quad_rate_resolve: bool = False
     # Edge-quad capacity for quad_rate_resolve's compacted flat batch
     # (0 = n_quads // 4). Overflowed edge pixels keep their quad anchor's
@@ -145,7 +141,7 @@ class RasterConfig:
     # one 4x4-texel block row per uniform 2x2 output quad instead of one
     # 2x2 quad row per pixel; velocity-edge quads go through a compacted
     # per-pixel batch (taa_edge_capacity, 0 = n_quads // 4). Bit-exact
-    # (tests/test_taa_quad.py). A/B on TPU before enabling.
+    # (tests/test_taa_quad.py). Off until measured.
     taa_quad_history: bool = False
     taa_edge_capacity: int = 0
     # Gather-free TAA history fetch: near-static pixels select their
@@ -161,13 +157,6 @@ class RasterConfig:
     # contractions onto the MXU at quad rate and measured ~8x slower
     # than the per-pixel gather it replaces — tools/r5_taa_fetch_ab.py).
     taa_quad_where: bool = False
-    # Winner-payload contraction in the fine-raster kernel: one MXU dot
-    # per chunk selects the winning record's 24-col payload per pixel
-    # while the tile's records sit in VMEM, replacing the resolve pass's
-    # H*W-row record gather with a pair_capacity-row stream gather.
-    # BIT-IDENTICAL (tests/test_kernel_payload.py). Requires slim_rec +
-    # the pallas pair backend.
-    kernel_payload: bool = False
     # Packet traversal for raytraced shadows (rt.traverse.
     # occluded_packets): this many screen-adjacent rays share one
     # traversal stack — node/tri rows fetched once per packet instead of
@@ -190,7 +179,7 @@ class RasterConfig:
     # block rows per uniform 2x2 pixel quad instead of four 32 B quad
     # rows. Bit-exact (tests/test_texture_meta.py); edge quads (texture/
     # mip/wrap-seam straddles) go through a compacted per-pixel batch
-    # (tap_edge_capacity, 0 = n_quads // 4). A/B on TPU before enabling.
+    # (tap_edge_capacity, 0 = n_quads // 4). Off until measured.
     tap_block: bool = False
     tap_edge_capacity: int = 0
     # Tile-rate resolve (resolve._slot_fetch_channels): the three resolve
@@ -200,7 +189,7 @@ class RasterConfig:
     # quad_rate_resolve (coarser reuse, ~3x fewer rows); bit-exact
     # (tests/test_resolve_slot.py). Pixels beyond slot_k distinct ids per
     # tile go through a compacted per-pixel batch (slot_edge_capacity,
-    # 0 = n_pixels // 64). A/B on TPU before enabling.
+    # 0 = n_pixels // 64). Off until measured.
     slot_resolve: bool = False
     slot_k: int = 16
     slot_edge_capacity: int = 0
@@ -228,12 +217,6 @@ class RasterConfig:
         return self.tiles_x * self.tiles_y
 
     @property
-    def n_tiles_padded(self) -> int:
-        t = self.n_tiles
-        s = self.tiles_per_step
-        return -(-t // s) * s
-
-    @property
     def padded_width(self) -> int:
         return self.tiles_x * self.tile_w
 
@@ -244,8 +227,7 @@ class RasterConfig:
 
 # Saturation bound: 2*_SAT still fits in int32. Plain Python int: a
 # module-level jnp scalar would initialize the JAX backend at import time,
-# before applications can pin jax_platforms (the ONLY way to force CPU on
-# this platform — CLAUDE.md).
+# before applications can pin jax_platforms.
 _SAT = 1 << 29
 
 
@@ -362,7 +344,10 @@ def setup_draw_records(
         0,
     )  # (N,)
 
-    view_proj = jnp.asarray(camera.projection) @ jnp.asarray(camera.view)
+    view_proj = jnp.matmul(
+        jnp.asarray(camera.projection), jnp.asarray(camera.view),
+        precision=fastmath.HIGHEST,
+    )
     mvp = fastmath.compose_mat4(view_proj, instances.transform)  # (N_inst,4,4)
     n_draws = inst_ids.shape[0]
     if materials is not None:
@@ -643,9 +628,8 @@ def setup_finalize(parts: dict, cum_draws, config: RasterConfig):
     tri_total = jnp.minimum(cum[-1], cap)
 
     # Clipped second-triangles go to a SMALL separate region selected by
-    # sort + gather. (A capacity-wide scatter of 16-float rows costs
-    # ~65 ms/frame on TPU — scatters, unlike gathers, are not row-rate
-    # flat. Extras are rare; give them cap/8 slots.)
+    # sort + gather instead of a capacity-wide scatter of 16-float rows.
+    # Extras are rare; give them cap/8 slots.
     ecap = cap // 8
     needs2 = parts["needs2"]
     n_extras = jnp.sum(needs2.astype(jnp.int32))
@@ -756,7 +740,7 @@ def bake_tile_origin(rec, tiles, config: RasterConfig, row_px_offset=0):
 def bin_triangles(setup: dict, config: RasterConfig):
     """(tri, tile) pairs -> per-tile field-major record blocks + counts."""
     TX, TY = config.tiles_x, config.tiles_y
-    NT = config.n_tiles_padded
+    NT = config.n_tiles
     K = config.tile_tri_capacity
     E = config.pair_capacity
 
@@ -834,9 +818,8 @@ def bin_triangles_pairs(setup: dict, config: RasterConfig, ty_range=None):
     """Pair-centric binning: tile-sorted records + per-tile ranges, no
     per-tile capacity (feeds ops/fine_raster.fine_raster_pairs).
 
-    Two-stream pair construction (scan-diet — measured on TPU, scans and
-    scatters at 1M elements cost 4-10 ms EACH while sorts are ~0.6 ms/M,
-    tools/microbench_scans.py): every triangle's FIRST tile is a direct
+    Two-stream pair construction (few capacity-sized scans and scatters,
+    one sort): every triangle's FIRST tile is a direct
     1:1 slot (no expansion at all); only multi-tile triangles (~15% of a
     typical scene) are compacted by a sort and expanded at
     pair_capacity/4 scale, cutting the expansion scans 4x.
@@ -847,12 +830,11 @@ def bin_triangles_pairs(setup: dict, config: RasterConfig, ty_range=None):
     record b coefficients are still baked to GLOBAL pixel origins."""
     TX, TY = config.tiles_x, config.tiles_y
     if ty_range is None:
-        NT = config.n_tiles_padded
+        NT = config.n_tiles
         ty_lo, row_px_offset = 0, 0
     else:
         ty_lo, local_rows = ty_range
-        s = config.tiles_per_step
-        NT = -(-(local_rows * TX) // s) * s
+        NT = local_rows * TX
         row_px_offset = ty_lo * config.tile_h
     EB = config.pair_capacity // 4  # extra-pair stream capacity
 
@@ -942,25 +924,16 @@ def bin_triangles_pairs(setup: dict, config: RasterConfig, ty_range=None):
     ).astype(jnp.int32)
     starts = bounds[:-1]
     counts = bounds[1:] - bounds[:-1]
-
-    from ..ops.fine_raster import CHUNK
-
-    # pad: one chunk for round-down + up to a chunk of capacity remainder
-    e_total = rec_sorted.shape[0]
-    pad = 2 * CHUNK - (e_total % CHUNK if e_total % CHUNK else CHUNK) + CHUNK
-    rec_sorted = jnp.concatenate(
-        [rec_sorted, jnp.zeros((pad, fr.RECORD_F), jnp.float32)]
-    )
     return rec_sorted, starts, counts, overflow
 
 
 def fine_raster_xla(records, counts, config: RasterConfig, track2: bool = False):
-    """Pure-XLA reference fine raster over the same record blocks.
+    """Pure-XLA reference fine raster over per-tile record blocks.
 
-    Used where a Pallas kernel cannot run (SPMD-sharded dryruns) and as the
-    oracle twin for the kernel. Affine-coefficient records with b baked to
-    each tile's origin (bin_triangles); semantics identical to
-    ops/fine_raster.py's block kernel.
+    The plain twin of ops/fine_raster.fine_raster_pairs: affine-coefficient
+    records with b baked to each tile's origin (bin_triangles), the same
+    depth/id competition, but over a fixed tile_tri_capacity per tile —
+    it pays for capacity, and drops pairs past it (counted as overflow).
     """
     NT, K, F = records.shape
     PX = config.tile_h * config.tile_w
@@ -1034,20 +1007,6 @@ def _untile(depth, trif, config: RasterConfig):
     return untile(depth), untile(trif).astype(jnp.int32)
 
 
-def fine_raster(records, counts, config: RasterConfig, backend: str = "pallas"):
-    if backend == "xla":
-        depth, trif = fine_raster_xla(records, counts, config)
-    else:
-        depth, trif = fr.fine_raster_pallas(
-            records,
-            counts,
-            tiles_x=config.tiles_x,
-            tiles_per_step=config.tiles_per_step,
-            interpret=config.interpret,
-        )
-    return _untile(depth, trif, config)
-
-
 def rasterize(
     meshes: MeshPoolData,
     instances: InstanceData,
@@ -1060,49 +1019,21 @@ def rasterize(
     track2 = config.alpha_mask
     setup = triangle_setup(meshes, instances, draws, camera, config,
                            materials=materials, inst_rec=inst_rec)
-    tri_id2 = None
-    payload_img = None
-    H, W = config.height, config.width
     if config.backend == "pallas":
         # pair-centric path: no per-tile capacity
         rec_sorted, starts, counts, overflow = bin_triangles_pairs(setup, config)
-        payload = None
-        if getattr(config, "kernel_payload", False):
-            payload = _pair_payload_stream(rec_sorted, setup["resolve_rec"])
         outs = fr.fine_raster_pairs(
-            rec_sorted,
-            starts,
-            counts,
-            tiles_x=config.tiles_x,
-            tiles_per_step=config.tiles_per_step,
-            interpret=config.interpret,
-            track2=track2,
-            payload=payload,
+            rec_sorted, starts, counts,
+            interpret=config.interpret, track2=track2,
         )
-        depth, trif = outs[0], outs[1]
-        depth, tri_id = _untile(
-            depth.reshape(depth.shape[0], -1), trif.reshape(trif.shape[0], -1), config
-        )
-        if track2:
-            depth2, tri_id2 = _untile(
-                outs[2].reshape(outs[2].shape[0], -1),
-                outs[3].reshape(outs[3].shape[0], -1),
-                config,
-            )
-        if payload is not None:
-            payload_img = _untile_payload(
-                outs[-1], tri_id[:H, :W], setup["resolve_rec"], config
-            )
     else:
         records, counts, overflow = bin_triangles(setup, config)
-        if track2:
-            outs = fine_raster_xla(records, counts, config, track2=True)
-            depth, tri_id = _untile(outs[0], outs[1], config)
-            depth2, tri_id2 = _untile(outs[2], outs[3], config)
-        else:
-            depth, tri_id = fine_raster(
-                records, counts, config, backend=config.backend
-            )
+        outs = fine_raster_xla(records, counts, config, track2=track2)
+    depth, tri_id = _untile(outs[0], outs[1], config)
+    tri_id2 = depth2 = None
+    if track2:
+        depth2, tri_id2 = _untile(outs[2], outs[3], config)
+    H, W = config.height, config.width
     return VisBuffer(
         tri_id=tri_id[:H, :W],
         depth=depth[:H, :W],
@@ -1110,51 +1041,4 @@ def rasterize(
         overflow=overflow + setup["setup_overflow"],
         tri_id2=None if tri_id2 is None else tri_id2[:H, :W],
         depth2=None if tri_id2 is None else depth2[:H, :W],
-        payload_img=payload_img,
     )
-
-
-def _pair_payload_stream(rec_sorted, resolve_rec):
-    """(E_pad, 40) f32 per-pair payload rows for the kernel's winner
-    contraction (RasterConfig.kernel_payload): resolve_rec gathered in
-    pair order (one 96 B row per pair, ~pair_capacity rows — vs H*W rows
-    for the per-pixel resolve gather this replaces). Columns 15:24 are
-    bitcast u32/f16 data whose bit patterns can be NaN/Inf/subnormal —
-    poison through an MXU dot — so they ride as 16-bit integer halves
-    (exact in f32); 0:15 are finite clip/uv floats and ride directly."""
-    ids = rec_sorted[:, fr.F_ID].astype(jnp.int32)
-    idx = jnp.clip(ids, 0, resolve_rec.shape[0] - 1)
-    rows = resolve_rec[idx]  # (E_pad, 24)
-    if rows.shape[1] != 24:
-        raise ValueError(
-            "kernel_payload requires the 24-column slim resolve record "
-            "(RasterConfig.slim_rec)"
-        )
-    u = jax.lax.bitcast_convert_type(rows[:, 15:24], jnp.uint32)
-    lo = (u & 0xFFFF).astype(jnp.float32)
-    hi = (u >> 16).astype(jnp.float32)
-    pad = jnp.zeros((rows.shape[0], 7), jnp.float32)
-    return jnp.concatenate([rows[:, :15], lo, hi, pad], axis=-1)  # 40 cols
-
-
-def _untile_payload(pay, tri_id, resolve_rec, config: RasterConfig):
-    """(NT, 40, TILE_PX) kernel payload -> (H, W, 24) dense record table,
-    bit-identical to resolve_rec[max(tri_id, 0)]: reassemble the 16-bit
-    halves into the original bitcast columns, untile, and give misses the
-    row-0 record exactly like the gather's clamped index."""
-    NT = config.n_tiles
-    TY, TX = config.tiles_y, config.tiles_x
-    th, tw = config.tile_h, config.tile_w
-    H, W = config.height, config.width
-    nat = pay[:NT, :15]  # (NT, 15, 128)
-    lo = pay[:NT, 15:24].astype(jnp.uint32)
-    hi = pay[:NT, 24:33].astype(jnp.uint32)
-    bc = jax.lax.bitcast_convert_type(lo | (hi << 16), jnp.float32)
-    rec = jnp.concatenate([nat, bc], axis=1)  # (NT, 24, 128)
-    img = (
-        rec.transpose(0, 2, 1)
-        .reshape(TY, TX, th, tw, 24)
-        .transpose(0, 2, 1, 3, 4)
-        .reshape(TY * th, TX * tw, 24)[:H, :W]
-    )
-    return jnp.where(tri_id[..., None] >= 0, img, resolve_rec[0])

@@ -6,7 +6,7 @@ the alpha cutoff, and writes the packed G-buffer. Our rasterizer emits only
 (triangle id, depth); this pass recomputes perspective-correct barycentrics
 per winning pixel and evaluates the same attribute math densely.
 
-Gather budget (TPU gathers are ~4-6 ns/row): per pixel this pass issues
+Gather budget: per pixel this pass issues
 exactly 3 row-gathers — the packed resolve record (clip + ids, 48 B), ONE
 packed corner-attribute row (uv f32 + octahedral normals/tangents, 48 B),
 one fused instance+material record (basis + full material row, 96 B from a
@@ -38,7 +38,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..core import struct
 
 from ..core import checks, encoding, fastmath
 from ..scene.scene import SceneData
@@ -127,15 +127,6 @@ def _fetch_rows(scene: SceneData, vis: VisBuffer, tri_id,
       pk   (*S, 12)    u32  packed corner-attribute row
       irec (*S, 24) f32 | (*S, 12) u32  fused instance+material record
     Raw (undecoded) forms so the quad path can scatter narrow rows."""
-    if (
-        slim
-        and getattr(vis, "payload_img", None) is not None
-        and tri_id.shape == vis.payload_img.shape[:-1]
-    ):
-        # RasterConfig.kernel_payload: the raster kernel already
-        # contracted the winner's record per pixel (bit-identical to the
-        # gather below) — zero per-pixel rows here.
-        return dict(rec=vis.payload_img)
     tid = jnp.maximum(tri_id, 0)
     rec = vis.resolve_rec[
         checks.check_index(tid, vis.resolve_rec.shape[0], "resolve.rec")
@@ -177,8 +168,7 @@ def _quad_fetch(scene: SceneData, vis: VisBuffer, tri_id,
                 inst_f16: bool = False, capacity: int = 0):
     """Coherence-aware fetch (RasterConfig.quad_rate_resolve): neighboring
     pixels usually hit the same triangle, so the three per-pixel row
-    gathers (the resolve pass's dominant cost — TPU gathers are row-rate
-    bound at ~5 ns/row regardless of the mask) are issued once per UNIFORM
+    gathers (the resolve pass's dominant cost) are issued once per UNIFORM
     2x2 quad and broadcast; only pixels of non-uniform (edge) quads go
     through a compacted flat batch + row scatters. Bit-exact with the
     per-pixel path: the same rows feed the same math. Row count drops from
@@ -606,13 +596,9 @@ def _pixel_fields(scene: SceneData, vis: VisBuffer, tri_id, depth,
 # Planar (channel-major) resolve twin — RasterConfig.planar_resolve
 # ---------------------------------------------------------------------------
 #
-# Hardware finding (tools/r4_probe.py, TPU v5e): the dense resolve math —
-# NOT its gathers — costs ~36 ms at 1080p (rows fetched at constant index 0
-# time the same as real indices; dropping the texture taps saves only
-# ~3 ms). The per-pixel math operates on (H, W, 3) / (H, W, 3, 3) arrays
-# whose tiny trailing dims land in the TPU's minor (lane) dimension and pad
-# to 128 when materialized between fusion barriers — up to 42x wasted
-# HBM traffic and VPU lanes. This twin evaluates the IDENTICAL arithmetic
+# The per-pixel math operates on (H, W, 3) / (H, W, 3, 3) arrays whose tiny
+# trailing dims may pad when materialized between fusion barriers. This
+# twin evaluates the IDENTICAL arithmetic
 # (same ops, same association order, bit-exact — tests/test_resolve_planar)
 # on channel-major (H, W) planes, which tile perfectly.
 
@@ -894,9 +880,8 @@ def _assemble(fields, overflow=None):
 
 
 # Packed fallback row layout (u32 bitcast): the flat batch's results return
-# to the image through ONE row scatter — scatters are not row-rate flat on
-# TPU, so one 64 B row beats 15 separate field scatters by an order of
-# magnitude.
+# to the image through ONE row scatter instead of 15 separate field
+# scatters.
 _FB_F = 16  # [n, uv, material, depth, albedo*4, emissive*3, mr*4, flag]
 
 

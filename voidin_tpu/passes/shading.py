@@ -79,28 +79,13 @@ def uv_lod(uv: jnp.ndarray, tex_w, tex_h) -> jnp.ndarray:
 
 
 def sample_lut_bilinear_mxu_multi(tables, uv: jnp.ndarray):
-    """Gather-free bilinear LUT samples: two dense contractions on the MXU,
-    two-tap weight matrices shared across all tables.
+    """Gather-free bilinear LUT samples: two-tap weight matrices shared
+    across all tables, one (P, H) @ (H, W) contraction per table.
 
     `tables`: list of (H, W) single-channel f32 (same shape). `uv`: (..., 2)
     pre-scaled by LUT_SCALE/BIAS (taps never cross the clamp border, so this
-    matches sample_lut_bilinear exactly up to f32 rounding). Gathers cost
-    ~5 ns/row on this TPU (measured) — several per pixel made the LTC LUT
-    fetches the hottest ops in the frame; as matmuls the same math rides
-    the MXU at a fraction of the cost.
-
-    With LTC_FETCH_PALLAS enabled the same taps/weights run in the
-    Pallas kernel (ops/lut_fetch.py), which builds the (P, 64) weight
-    matrices IN VMEM instead of materializing them in HBM — per
-    COST_AUDIT.json those weights are the frame's dominant traffic."""
-    lut_mode = _lut_fetch_mode()
-    if lut_mode != "off" and tables[0].shape == (64, 64):
-        from ..ops.lut_fetch import lut_fetch_pallas
-
-        return lut_fetch_pallas(
-            tables, uv, interpret=lut_mode == "interpret",
-            bf16=LTC_LUT_BF16,
-        )
+    matches sample_lut_bilinear exactly up to f32 rounding). The quad-gather
+    form is sample_lut_bilinear over scene.ltc12_quads (LTC12_MXU off)."""
     h, w = tables[0].shape
     fx = uv[..., 0] * w - 0.5
     fy = uv[..., 1] * h - 0.5
@@ -160,32 +145,15 @@ def integrate_edge(v1, v2):
     return jnp.cross(v1, v2) * theta_sintheta[..., None]
 
 
-# Evaluate the ltc12 matrix fetch on the MXU instead of per-pixel gathers
-# (A/B-measured on the north-star scene; flip for experiments).
+# ltc12 matrix fetch: True = the two-tap weight contraction
+# (sample_lut_bilinear_mxu_multi, Precision.HIGHEST), False = the
+# quad-gather form (sample_lut_bilinear over ltc12_quads).
 LTC12_MXU = True
 
-# Build the two-tap bilinear weight matrices in bf16 (halves the HBM
-# traffic of the (P, 64) intermediates that dominate the LUT-on-MXU cost;
-# LUT values are O(1) and smooth, so bf16 weights cost ~1e-3 absolute —
-# under the 1e-2 image budget). Off until A/B-measured on TPU
-# (tools/bisect_shade.py).
+# Build the two-tap bilinear weight matrices in bf16 (halves the traffic of
+# the (P, 64) intermediates; LUT values are O(1) and smooth, so bf16 weights
+# cost ~1e-3 absolute — under the 1e-2 image budget). Off by default.
 LTC_LUT_BF16 = False
-
-# LUT fetches through the Pallas kernel (ops/lut_fetch.py): "off" (XLA
-# matmul formulation), "hw" (compiled kernel, TPU), "interpret" (kernel
-# in interpret mode — CPU tests). Eliminates the HBM-materialized weight
-# matrices entirely; A/B on TPU before making it the default. NOTE: not
-# used under the row-sharded frame (a pallas_call inside spmd-sharded
-# dense code would need its own shard_map wrapper) — the renderer forces
-# it off there via the THREAD-LOCAL trace override below, so concurrent
-# traces on other threads cannot observe the suppression.
-LTC_FETCH_PALLAS = "off"
-
-_TRACE_LOCAL = __import__("threading").local()
-
-
-def _lut_fetch_mode():
-    return getattr(_TRACE_LOCAL, "lut_override", None) or LTC_FETCH_PALLAS
 
 
 def ltc_matrix(scene: SceneData, nor, view, roughness):

@@ -81,9 +81,8 @@ def _bilinear_clamp(img, u, v):
     """Bilinear sample of (H, W, C) at normalized uv (clamp-to-edge).
 
     The 2x2 neighborhood is packed densely into one row per texel first
-    (four shifted copies — cheap VPU work), so the per-pixel fetch is ONE
-    flat gather instead of four two-axis gathers (4x ~17 ms -> ~10 ms at
-    1080p; TPU gathers are row-rate bound)."""
+    (four shifted copies — cheap dense work), so the per-pixel fetch is ONE
+    flat gather instead of four two-axis gathers."""
     H, W = img.shape[:2]
     C = img.shape[2]
     xn = jnp.concatenate([img[:, 1:], img[:, -1:]], axis=1)
@@ -222,6 +221,7 @@ def _bilinear_clamp_quadblock(img, u, v, capacity=0, select="einsum"):
         )  # (Hq, Wq, 2, 2, e, i)
         corners = jnp.einsum(
             "hwjic,hwpqdj,hwpqei->hwpqdec", blk, oh_y, oh_x,
+            precision=jax.lax.Precision.HIGHEST,
             preferred_element_type=jnp.float32,
         )  # (Hq, Wq, 2, 2, 2, 2, C) f32
         c00 = unq(corners[..., 0, 0, :])

@@ -508,7 +508,7 @@ def tlas_exit_links(nodes: np.ndarray) -> np.ndarray:
 # Refit plans (host): level-ordered index arrays for in-jit bottom-up AABB
 # refit over FIXED topology. Skinned geometry moves every frame; rebuilding
 # a BVH inside a jit is impossible (data-dependent structure), but a refit
-# is just per-level gathers + one scatter — TPU-friendly. (Beyond reference
+# is just per-level gathers + one scatter. (Beyond reference
 # parity: the wgpu renderer has no skinning and never refits;
 # scene/skin.py:16-19 documented the rest-pose shadow limitation this
 # removes.)

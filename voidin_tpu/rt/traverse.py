@@ -5,7 +5,7 @@ two-level, ray transformed into object space per instance leaf) re-shaped
 for a SIMD machine: instead of one divergent thread per ray, ALL rays run in
 lock-step through a `lax.while_loop`; each iteration pops one stack entry
 per ray and performs masked TLAS/BLAS work. Memory accesses follow the
-one-wide-row-per-step rule (TPU gathers are element-rate bound):
+one-wide-row-per-step rule (one gather row per fetch):
 
 * TLAS nodes packed as (B, 8) rows [min3, a, max3, b]: internal a=left,
   b=right; leaf a=-1, b=instance;
@@ -40,7 +40,7 @@ MAX_LEAF = 8  # builder leaves are <= 3 except degenerate fallbacks
 
 
 class OcclusionResult(NamedTuple):
-    """occluded() output with TPU-grade observability (the raster path's
+    """occluded() output with overflow observability (the raster path's
     `overflow` counter, passes/raster.py, applied to traversal)."""
 
     hit: jnp.ndarray  # (R,) bool
@@ -334,8 +334,7 @@ def occluded_packets(
     """Packet any-hit occlusion: `packet` coherent rays share ONE traversal
     stack, so each step fetches node/instance/triangle rows once per
     PACKET instead of once per ray — the dominant per-step cost drops from
-    ~11 gather rows PER RAY to ~11/packet (TPU gathers are row-rate
-    bound). Shadow rays from neighboring pixels toward one light visit
+    ~11 gather rows PER RAY to ~11/packet. Shadow rays from neighboring pixels toward one light visit
     nearly the same nodes, so the union traversal adds few extra steps.
 
     BIT-IDENTICAL to occluded(): every lane's triangle test is gated on

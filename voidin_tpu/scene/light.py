@@ -11,7 +11,7 @@ from typing import List
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..core import struct
 
 
 @struct.dataclass

@@ -10,7 +10,7 @@ from typing import List
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..core import struct
 
 from .texture import BLACK_TEXTURE, WHITE_TEXTURE
 

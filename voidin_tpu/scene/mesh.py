@@ -1,6 +1,6 @@
 """Pooled SoA mesh storage + procedural meshes.
 
-TPU-native analogue of the reference MeshPool
+Analogue of the reference MeshPool
 (/root/reference/crates/pools/src/mesh/mod.rs:57-352): all meshes live in
 flat, device-resident SoA arrays (positions / normals / tangents / uvs /
 indices) with a per-mesh offset table (MeshInfo: AABB, base_index,
@@ -20,7 +20,7 @@ from typing import List
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..core import struct
 
 from ..rt import bvh as bvh_mod
 
@@ -177,8 +177,7 @@ class MeshPoolData:
     # rt/bvh.py exit_links. Topology-only: skinning refits never touch it.
     bvh_exit: jnp.ndarray  # (B,) i32
     # De-indexed triangle corner positions (T_pool, 9): one 36-byte row per
-    # triangle [x0 y0 z0 x1 y1 z1 x2 y2 z2]. TPU gathers are element-rate
-    # bound (~4ns/row regardless of width), so the raster setup fetches one
+    # triangle [x0 y0 z0 x1 y1 z1 x2 y2 z2]: the raster setup fetches one
     # wide row per triangle instead of 3 index + 3 position gathers.
     tri_pos: jnp.ndarray  # (T_pool, 9) f32
     # De-indexed per-triangle corner attributes packed into ONE 48-byte

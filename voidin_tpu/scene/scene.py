@@ -14,7 +14,7 @@ from typing import Optional
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..core import struct
 
 from ..rt import bvh as bvh_mod
 from .instance import InstanceData, InstancePool

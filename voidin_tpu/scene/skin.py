@@ -4,7 +4,7 @@ inside the frame jit.
 The reference renderer has NO skinning (its glTF importer ignores skins and
 its only animation rotates instance transforms —
 shaders/compute_update.wgsl:19-27); BASELINE config 4 asks for an animated
-skinned glTF, so this pass EXCEEDS reference parity. TPU-first design: the
+skinned glTF, so this pass EXCEEDS reference parity. Design: the
 raster consumes de-indexed per-triangle corner tables (tri_pos /
 tri_attr_packed), so skinning re-computes exactly those rows for the
 skinned region and writes them back with one dynamic_update_slice each —
@@ -25,7 +25,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..core import struct
 
 from ..core import encoding
 
@@ -85,13 +85,16 @@ def apply_skin(meshes, skin: SkinData, joint_mats: jnp.ndarray):
     Mw = jnp.sum(M * skin.weights[..., None, None], axis=2)  # (T, 3, 4, 4)
     R = Mw[..., :3, :3]
     pos = (
-        jnp.einsum("tcij,tcj->tci", R, skin.rest_pos) + Mw[..., :3, 3]
+        jnp.einsum("tcij,tcj->tci", R, skin.rest_pos,
+                   precision=jax.lax.Precision.HIGHEST) + Mw[..., :3, 3]
     )  # (T, 3, 3)
-    nrm = jnp.einsum("tcij,tcj->tci", R, skin.rest_nrm)
+    nrm = jnp.einsum("tcij,tcj->tci", R, skin.rest_nrm,
+                   precision=jax.lax.Precision.HIGHEST)
     nrm = nrm / jnp.maximum(
         jnp.linalg.norm(nrm, axis=-1, keepdims=True), 1e-20
     )
-    tan = jnp.einsum("tcij,tcj->tci", R, skin.rest_tan)
+    tan = jnp.einsum("tcij,tcj->tci", R, skin.rest_tan,
+                   precision=jax.lax.Precision.HIGHEST)
     tan = tan / jnp.maximum(
         jnp.linalg.norm(tan, axis=-1, keepdims=True), 1e-20
     )

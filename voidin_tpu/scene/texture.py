@@ -1,10 +1,9 @@
-"""Bindless-style texture pool for TPU — texel-quad packed.
+"""Bindless-style texture pool — texel-quad packed.
 
 The reference binds up to 1024 textures as a `binding_array` sampled by
-material index (pools/src/texture.rs:29-161). TPUs have no texture units:
-every texel fetch is a vector gather, and gathers are element-RATE bound
-(~4-6 ns per row regardless of row width up to ~64 B). The pool layout is
-therefore built around "one gather per bilinear tap":
+material index (pools/src/texture.rs:29-161). Here every texel fetch is
+an XLA gather rather than a texture-unit sample, so the pool layout is
+built around "one gather row per bilinear tap":
 
 * every texel stores its full 2x2 bilinear neighborhood as one 16-byte row
   (RGBA8 x [c00, c10, c01, c11]) with wrap addressing baked in at build
@@ -30,7 +29,7 @@ from typing import List
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..core import struct
 
 from ..core import checks
 
@@ -99,7 +98,7 @@ def pool_device_bytes(n_textures: int, pool_size: int,
     duplicate the bytes), tripled on top when the 4x4 tap-block tables
     are built. The Sponza-scale budget check (tests/test_stress.py) holds
     this against device HBM — at S=1024 a slot costs ~44.7 MB, so a
-    ~100-texture scene fits a v5e (16 GB) only with blocks=False
+    ~100-texture scene fits a 16 GB device only with blocks=False
     (bench.run_preset builds blocks solely when the tuned variant taps
     them)."""
     total_rows = sum(s * s for s in _mip_sizes(pool_size))
@@ -169,10 +168,8 @@ class TexturePoolData:
     child_blocks: jnp.ndarray = None
     parent_blocks: jnp.ndarray = None
     # 16 B-row twins of `quads` (child half / parent half, same row
-    # index), built when the pool crosses _SPLIT_MIN_ROWS: big-table
-    # gathers on TPU run ~18 ns/row at 32 B rows but ~2.4 ns/row at 16 B
-    # (tools/r5_gather_cliff.py + r5_cliff16.py) — two 16 B gathers beat
-    # one 32 B gather ~4x above the cliff. Identical bytes -> bit-exact.
+    # index), built when the pool crosses _SPLIT_MIN_ROWS: two 16 B gathers
+    # in place of one 32 B gather. Identical bytes -> bit-exact.
     quads_child: jnp.ndarray = None
     quads_parent: jnp.ndarray = None
     level_offset: tuple = struct.field(pytree_node=False, default=None)
@@ -550,7 +547,7 @@ def sample_trilinear_quadblock(pool: TexturePoolData, tex_id, uv, lod,
     footprints of a 2x2 PIXEL quad land within ~1 texel of each other at a
     proper mip level, so ONE child-block + ONE parent-block 4x4 row (64 B
     each, pool.child_blocks/parent_blocks) serve all four pixels — 2
-    gather rows per quad instead of 4 (TPU gathers are row-rate bound).
+    gather rows per quad instead of 4.
     Quads that straddle a texture, mip level, wrap seam, or >3-texel
     spread go through a compacted per-pixel batch on the regular 32 B
     quad rows. BIT-IDENTICAL to sample_trilinear(..., wh=wh, srgb=srgb):
@@ -616,7 +613,8 @@ def sample_trilinear_quadblock(pool: TexturePoolData, tex_id, uv, lod,
 
     def corner(blk, dy, dx):  # (Hq, Wq, 2, 2, 4) one-hot select
         sub = blk[:, :, dy : dy + 3, dx : dx + 3, :]
-        return jnp.einsum("hwjic,hwpqj,hwpqi->hwpqc", sub, oh_y, oh_x)
+        return jnp.einsum("hwjic,hwpqj,hwpqi->hwpqc", sub, oh_y, oh_x,
+                          precision=jax.lax.Precision.HIGHEST)
 
     def unq(a):  # (Hq, Wq, 2, 2, 4) -> (H, W, 4)
         return a.transpose(0, 2, 1, 3, 4).reshape(H, W, 4)
